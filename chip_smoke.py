@@ -7,12 +7,18 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It builds the port's CUDA kernels from libecc_tpu_torch/csrc with nvcc,
 checks each kernel bitwise against its plain PyTorch version on the card,
-drives the main path (batched P-256 ECDSA verification, bytes in and
-accept mask out, at batch 8192) through verify_batch, verify_batch_async
-and verify_batches, checks the accept masks (valid lanes, corrupted lanes,
-the P-256 Wycheproof rows), and times the verify batch and each kernel.
-It imports neither JAX nor the JAX package. Any failed phase makes it
-exit non-zero before the result lines; without a CUDA device it exits 1.
+and drives two paths at batch 8192, bytes in and accept mask out:
+
+1. batched P-256 ECDSA verification, through verify_batch,
+   verify_batch_async and verify_batches;
+2. batched Ed25519 verification, through eddsa.verify_batch.
+
+For each path it checks the accept masks (valid lanes, corrupted lanes,
+the Wycheproof rows, and for Ed25519 the RFC 8032 KAT rows), counts the
+kernel launches of the path's own run, and times the verify batch, its
+stages and each kernel. It imports neither JAX nor the JAX package. Any
+failed phase makes it exit non-zero before the result lines; without a
+CUDA device it exits 1.
 
 The last two lines of standard output are one JSON object listing the
 kernels and one JSON object {"ok": true, "device": {...}}.
@@ -43,6 +49,9 @@ K = 8
 FMUL_SLOTS = 2 * (2 * K * K) + K                       # wide products count 2
 FSQR_SLOTS = 2 * (K * (K - 1) // 2 + K + K * K) + K
 PER_WINDOW = (22, 30)                                  # (squares, products), w=4
+ED_PER_WINDOW = (16, 25)                # 4 dbl-2008-hwcd + add-2008-hwcd-3
+VEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                   "vectors")
 
 
 def _fail(msg: str):
@@ -90,19 +99,54 @@ def _bound_ms(nbytes: float, slots: float):
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
+def _profile(torch, fn, label: str):
+    """Device busy share of one call of fn, from the profiler's kernel
+    times over the host wall time of the synchronised call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - h0) * 1e6
+    kernels_us = {}
+    n_kernels = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_us[evt.name] = kernels_us.get(evt.name, 0.0) \
+                + evt.time_range.elapsed_us()
+            n_kernels += 1
+    busy_us = sum(kernels_us.values())
+    if busy_us <= 0:
+        print(f"profile of one {label} batch: the profiler recorded no "
+              "device time (busy share not measured)")
+        return None
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
+    share = busy_us / wall_us
+    print(f"profile of one {label} batch: wall {wall_us / 1e3:.3f} ms under "
+          f"the profiler, device kernels {busy_us / 1e3:.3f} ms in "
+          f"{n_kernels} launches, busy share {share:.4f}")
+    for name_, us in top:
+        print(f"  {us / 1e3:9.4f} ms  {name_[:90]}")
+    return share
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import numpy as np
+    from libecc_tpu_torch import stages
     from libecc_tpu_torch.nn import core as nn
-    from libecc_tpu_torch.fp import field as fp
-    from libecc_tpu_torch.curves import params, scalar_mul
+    from libecc_tpu_torch.curves import edwards, params, scalar_mul
+    from libecc_tpu_torch.curves.edwards import ExtPoint
     from libecc_tpu_torch.curves.shortw import PrjPoint
-    from libecc_tpu_torch.ops.cuda import build, mont, point, megamul
+    from libecc_tpu_torch.ops.cuda import build, edpoint, mont, point, \
+        megamul
     from libecc_tpu_torch.ref import hostref as H
-    from libecc_tpu_torch.sig import ecdsa, keys as K_
+    from libecc_tpu_torch.sig import ecdsa, eddsa, keys as K_
 
     dev = torch.device("cuda")
     timer = Timer(torch)
@@ -131,6 +175,10 @@ def main() -> int:
     pctx, qctx = c.fp_ctx, c.q_ctx
     p, q = pctx.p_int, c.q
     wc = H.WCurve(p, c.a, c.b, c.gx, c.gy, q)
+    ec = edwards.get_edwards_curve("ED25519")
+    ectx = ec.fp_ctx
+    ep, eq = ectx.p_int, ec.q
+    hc = H.EdCurve(ep, ec.a, ec.d, ec.gx, ec.gy, eq, ec.h)
     rng = np.random.RandomState(2026)
     results = {}
 
@@ -139,7 +187,7 @@ def main() -> int:
         return [int(sum(int(v) << (30 * i) for i, v in enumerate(row)) % mod)
                 for row in raw]
 
-    def cmp(name, got, want, n):
+    def cmp(name, got, want, n, where=""):
         got = [g.to(torch.int64) for g in got]
         want = [w.to(torch.int64) for w in want]
         err = max(int((g - w).abs().max()) for g, w in zip(got, want))
@@ -147,19 +195,55 @@ def main() -> int:
                          f"version (max abs limb difference {err})")
         prev = results.setdefault(name, {}).get("max_abs_err", 0)
         results[name]["max_abs_err"] = max(prev, err)
-        print(f"check {name} at N={n}: bitwise equal to the plain version")
+        print(f"check {name} at N={n}{where}: bitwise equal to the plain "
+              "version")
+        return err
+
+    def staged(fn, reps=3):
+        """Run fn() reps times with the device synchronised at every stage
+        mark of the verify path (libecc_tpu_torch.stages). Returns the
+        median host ms of each stage ("return" is the time from the last
+        mark to fn's return), the last run's marked values and its
+        result."""
+        runs, vals, out = [], {}, None
+        for _ in range(reps):
+            names, t = [], []
+
+            def on_mark(name, *v):
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                names.append(name)
+                vals[name] = v
+
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            with stages.on_mark(on_mark):
+                out = fn()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            names.append("return")
+            runs.append(dict(zip(names, [(b - a) * 1e3
+                                         for a, b in zip(t, t[1:])])))
+        return ({name: round(statistics.median(r[name] for r in runs), 4)
+                 for name in runs[0]}, vals, out)
 
     # 3. each kernel against its plain version ----------------------------
-    for ctx in (pctx, qctx):
+    # Kernel 1 under P-256's p and q and under Ed25519's p (the modulus of
+    # its launches on the Ed25519 path), with the edge operands 0, 1, m - 1.
+    for ctx, label in ((pctx, "P-256's p"), (qctx, "P-256's q"),
+                       (ectx, "Ed25519's p")):
         m = ctx.p_int
         xs = [0, 1, m - 1, m - 1, 1] + rand_ints(MONT_N - 5, m)
         ys = [m - 1, m - 1, m - 1, 0, 1] + rand_ints(MONT_N - 5, m)
         a = nn.upload(nn.batch_to_limbs(xs, ctx.k), dev)
         b = nn.upload(nn.batch_to_limbs(ys, ctx.k), dev)
-        cmp("mont_mul", [mont.mont_mul(a, b, ctx)], [nn.mont_mul(a, b, ctx)],
-            MONT_N)
-        cmp("mont_sqr", [mont.mont_sqr(a, ctx)], [nn.mont_sqr(a, ctx)],
-            MONT_N)
+        where = f" under {label}"
+        errs = {"mont_mul": cmp("mont_mul", [mont.mont_mul(a, b, ctx)],
+                                [nn.mont_mul(a, b, ctx)], MONT_N, where),
+                "mont_sqr": cmp("mont_sqr", [mont.mont_sqr(a, ctx)],
+                                [nn.mont_sqr(a, ctx)], MONT_N, where)}
+        if ctx is ectx:
+            ed_check_err = errs
         rinv = pow(ctx.R, -1, m)
         got = nn.batch_from_limbs(mont.mont_mul(a, b, ctx)[:, :64])
         _check(got == [x * y * rinv % m for x, y in zip(xs[:64], ys[:64])],
@@ -264,7 +348,8 @@ def main() -> int:
     want_off = np.ones(BATCH, bool)
     want_off[off] = False
 
-    counts = [mont.launches, point.launches, megamul.launches]
+    counts = [mont.launches, point.launches, megamul.launches,
+              edpoint.launches]
 
     def reset():
         for d in counts:
@@ -294,15 +379,16 @@ def main() -> int:
            "verify_batches: wrong accept masks")
     main_counts = snapshot()
     print("main path launches:", json.dumps(main_counts))
-    for name, n_ in main_counts.items():
-        _check(n_ >= 1, f"kernel {name} was not launched on the main path")
+    p256_kernels = ["mont_mul", "mont_sqr", "point_add", "point_dbl",
+                    "windowed_mul"]
+    for name in p256_kernels:
+        _check(main_counts[name] >= 1,
+               f"kernel {name} was not launched on the main path")
     print("main path: valid lanes accept, corrupted lanes reject "
           "(verify_batch, verify_batch_async, verify_batches)")
 
     # Wycheproof P-256 rows, through all three entry points
-    vec = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                       "vectors", "wycheproof_subset.jsonl")
-    with open(vec) as f:
+    with open(os.path.join(VEC, "wycheproof_subset.jsonl")) as f:
         rows = [json.loads(x) for x in f]
     rows = [v for v in rows if v["scheme"] == "ECDSA"
             and v["curve"] == "SECP256R1"]
@@ -354,7 +440,7 @@ def main() -> int:
 
     # 5. measurements ---------------------------------------------------
     def one_batch():
-        ecdsa.verify_batch_async(kb, msgs, sigs)
+        return ecdsa.verify_batch_async(kb, msgs, sigs)
 
     for _ in range(2):
         one_batch()
@@ -399,88 +485,18 @@ def main() -> int:
     per_batch = snapshot()
     print("launches per verify batch:", json.dumps(per_batch))
 
-    # breakdown of one batch by stage (device time, synchronised stages)
-    from libecc_tpu_torch.hash import sha2
-    from libecc_tpu_torch.sig import common
-    from libecc_tpu_torch.curves.shortw import on_curve_mask
-    n_ = BATCH
-    msg_u8 = nn.upload(np.frombuffer(b"".join(msgs), np.uint8).reshape(
-        n_, 32), dev)
-    sig_u8 = nn.upload(np.frombuffer(b"".join(sigs), np.uint8).reshape(
-        n_, 64), dev)
-    state = {}
-
-    def st_hash():
-        w_ = sha2.sha256_device(sha2.blocks_from_bytes_dev(msg_u8, 32))
-        state["e"] = common.e_from_digest_bits(w_, 256, qctx)
-        state["r"] = nn.be_rows_to_limbs_dev(sig_u8[:, :32], qctx.k)
-        state["s"] = nn.be_rows_to_limbs_dev(sig_u8[:, 32:], qctx.k)
-
-    def st_inv():
-        state["sinv"] = common.q_inv(state["s"], qctx)
-        state["u"] = common.q_mul(state["e"], state["sinv"], qctx)
-        state["v"] = common.q_mul(state["r"], state["sinv"], qctx)
-
-    def st_oncurve():
-        state["ok"] = on_curve_mask(c, kb.pub)
-
-    def st_comb():
-        state["uG"] = scalar_mul.fixed_base_mul(c, state["u"])
-
-    def st_table():
-        state["tab"] = scalar_mul._build_mul_table(c, kb.pub)
-        state["digs"] = scalar_mul._window_digits(state["v"], 256)
-
-    def st_windowed():
-        state["vQ"] = megamul.windowed_mul(c, state["tab"], state["digs"],
-                                           PrjPoint)
-
-    def st_accept():
-        W = c.padd(state["uG"], state["vQ"])
-        ok = on_curve_mask(c, W)
-        rm = fp.to_mont(state["r"], pctx)
-        state["acc"] = ok & fp.eq_mask(W.x, fp.mul(rm, W.z, pctx))
-
-    stages = [("sha256+unpack", st_hash), ("q_inv+q_mul", st_inv),
-              ("on_curve(key)", st_oncurve), ("comb u*G", st_comb),
-              ("table [0..15]Q", st_table), ("windowed v*Q", st_windowed),
-              ("add+on_curve+accept", st_accept)]
-    for _, fn in stages:
-        fn()
-    torch.cuda.synchronize()
-    breakdown = {name: round(timer.ms(fn, 3, warm=1)[0], 4)
-                 for name, fn in stages}
-    print("stage ms (events around each synchronised stage):",
-          json.dumps(breakdown))
+    # breakdown of one batch by stage: verify_batch_async itself, the
+    # device synchronised at each of its stage marks
+    breakdown, marked, acc = staged(one_batch)
+    _check(bool(acc.all()), "P-256 stage breakdown: the batch does not accept")
+    _check(list(breakdown) == ["hash", "scalars", "key on curve", "comb",
+                               "table", "windowed", "accept", "return"],
+           f"P-256 stage marks: {list(breakdown)}")
+    print("stage ms (host clock, device synchronised at each stage mark of "
+          "verify_batch_async):", json.dumps(breakdown))
 
     # device busy share of one batch, from the profiler's kernel times
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        one_batch()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - h0) * 1e6
-    kernels_us = {}
-    n_kernels = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels_us[evt.name] = kernels_us.get(evt.name, 0.0) \
-                + evt.time_range.elapsed_us()
-            n_kernels += 1
-    busy_us = sum(kernels_us.values())
-    if busy_us > 0:
-        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
-        print(f"profile of one batch: wall {wall_us / 1e3:.3f} ms under the "
-              f"profiler, device kernels {busy_us / 1e3:.3f} ms in "
-              f"{n_kernels} launches, busy share "
-              f"{busy_us / wall_us:.4f}")
-        for name_, us in top:
-            print(f"  {us / 1e3:9.4f} ms  {name_[:90]}")
-    else:
-        print("profile of one batch: the profiler recorded no device time "
-              "(busy share not measured)")
+    busy_p256 = _profile(torch, one_batch, "P-256")
 
     # each kernel at the main path's shapes (N = 8192)
     N = BATCH
@@ -488,7 +504,7 @@ def main() -> int:
     b8 = nn.upload(nn.batch_to_limbs(rand_ints(N, p), 8), dev)
     PA8 = PrjPoint(*[t[:, :N].contiguous() for t in PA])
     PB8 = PrjPoint(*[t[:, :N].contiguous() for t in PB])
-    tab8, digs8 = state["tab"], state["digs"]
+    tab8, digs8 = marked["table"]         # the verify batch's own
     kern = {
         "mont_mul": (lambda: mont.mont_mul(a8, b8, pctx),
                      lambda: nn.mont_mul(a8, b8, pctx), 200, 20,
@@ -521,30 +537,279 @@ def main() -> int:
         "windowed_mul": "libecc_tpu/ops/pallas/megamul.py:161",
     }
     lines = []
-    for name, (kfn, pfn, kreps, preps, nbytes, slots) in kern.items():
+
+    def measure(name, kfn, pfn, kreps, preps, nbytes, slots, n):
+        """Time a kernel and its plain version on the same inputs, hold the
+        two bitwise, and compute the bound of the work."""
         kms, kout = timer.ms(kfn, kreps)
         pms, pout = timer.ms(pfn, preps, warm=1 if preps > 1 else 0)
-        # the timed runs are the main path's shapes: hold them bitwise too
-        cmp(name, kout if isinstance(kout, tuple) else [kout],
-            pout if isinstance(pout, tuple) else [pout], N)
+        err = cmp(name, kout if isinstance(kout, tuple) else [kout],
+                  pout if isinstance(pout, tuple) else [pout], n)
         bms, by = _bound_ms(nbytes, slots)
-        lines.append({
-            "name": name, "route": "cuda",
-            "source": f"libecc_tpu_torch/csrc/{source[name]}",
-            "replaces": replaces[name],
-            "launches": main_counts[name],
-            "launches_per_batch": per_batch[name],
-            "max_abs_err": results[name]["max_abs_err"],
-            "ms": round(kms, 5), "plain_ms": round(pms, 4),
-            "bound_ms": round(bms, 6), "bound_by": by,
-            "library_ms": None})
-        print(f"kernel {name}: {kms:.4f} ms at N={N} (plain {pms:.3f} ms, "
+        print(f"kernel {name}: {kms:.4f} ms at N={n} (plain {pms:.3f} ms, "
               f"bound {bms:.6f} ms by {by})")
+        return {"n": n, "max_abs_err": err, "ms": round(kms, 5),
+                "plain_ms": round(pms, 4), "bound_ms": round(bms, 6),
+                "bound_by": by}
+
+    def time_kernels(kern, path_counts, batch_counts, path):
+        for name, args in kern.items():
+            lines.append({
+                "name": name, "route": "cuda",
+                "source": f"libecc_tpu_torch/csrc/{source[name]}",
+                "replaces": replaces[name], "path": path,
+                "launches": path_counts[name],
+                "launches_per_batch": batch_counts[name],
+                **measure(name, *args, N),
+                # over every comparison of this kernel in the run
+                "max_abs_err": results[name]["max_abs_err"],
+                "library_ms": None})
+
+    time_kernels(kern, main_counts, per_batch, "P-256 ECDSA verify")
+
+    # 6. the Ed25519 path: kernels 8a, 8b and 7 against their plain
+    # versions, then eddsa.verify_batch at batch 8192 -----------------------
+    def ed_points(n, uniq=64):
+        pts = [H.ed_base_mul(hc, v % eq) for v in rand_ints(uniq, eq)]
+        return [pts[i % uniq] for i in range(n)]
+
+    def extended(pts):
+        lams = [1 + v % (ep - 1) for v in rand_ints(len(pts), ep)]
+        cols = [[], [], [], []]
+        for (x, y), lam in zip(pts, lams):
+            for col, v in zip(cols, (x * lam, y * lam, lam, x * y * lam)):
+                col.append(v % ep)
+        return ExtPoint(*[ectx.from_ints(col, dev) for col in cols])
+
+    def ed_affine_of(P, i):
+        zi = pow(ectx.to_ints(P.z[:, i:i + 1])[0], -1, ep)
+        return (ectx.to_ints(P.x[:, i:i + 1])[0] * zi % ep,
+                ectx.to_ints(P.y[:, i:i + 1])[0] * zi % ep)
+
+    EA = ed_points(POINT_N)
+    EB = ed_points(POINT_N)
+    ident = (0, 1)
+    EB[0], EA[1] = ident, ident                         # P + O, O + Q
+    EA[2] = EB[2] = ident
+    EB[3] = EA[3]                                       # P = Q
+    EB[4] = ((-EA[4][0]) % ep, EA[4][1])                # P = -Q
+    XA, XB = extended(EA), extended(EB)
+    cmp("ed_add", edpoint.ed_add(ec, XA, XB),
+        edpoint.ed_add_plain(ec, XA, XB), POINT_N)
+    cmp("ed_dbl", edpoint.ed_dbl(ec, XA), edpoint.ed_dbl_plain(ec, XA),
+        POINT_N)
+    S_ = edpoint.ed_add(ec, XA, XB)
+    D_ = edpoint.ed_dbl(ec, XA)
+    for i in range(8):
+        _check(ed_affine_of(S_, i) == H.ed_add(hc, EA[i], EB[i]),
+               f"ed_add lane {i} disagrees with the host oracle")
+        _check(ed_affine_of(D_, i) == H.ed_add(hc, EA[i], EA[i]),
+               f"ed_dbl lane {i} disagrees with the host oracle")
+
+    ewpts = ed_points(WINDOWED_N)
+    ems = rand_ints(WINDOWED_N, eq)
+    ems[0] = ems[1] = 0                                 # all-zero scalars
+    ems[2], ems[3], ems[4] = 1, 5, (1 << 37) + 3        # leading zeros
+    emt = nn.upload(nn.batch_to_limbs(ems, ec.q_ctx.k), dev)
+    etable = scalar_mul._build_mul_table(ec, extended(ewpts))
+    edigs = scalar_mul._window_digits(emt, ec.scalar_bits())
+    t0 = time.perf_counter()
+    want = megamul.windowed_mul_plain(ec, etable, edigs, ExtPoint)
+    print(f"windowed_mul_ed plain at N={WINDOWED_N}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    got = megamul.windowed_mul(ec, etable, edigs, ExtPoint)
+    cmp("windowed_mul_ed", got, want, WINDOWED_N)
+    for i in range(6):
+        _check(ed_affine_of(got, i) == H.ed_mul(hc, ems[i], ewpts[i]),
+               f"windowed_mul_ed lane {i} disagrees with the host oracle")
+
+    # fixture: 1024 unique (seed, 32-byte message, signature), tiled
+    t0 = time.perf_counter()
+    e_pubs, e_msgs, e_sigs = [], [], []
+    for _ in range(UNIQUE):
+        seed, msg = rng.bytes(32), rng.bytes(32)
+        pub, sig = H.ed25519_sign(hc, seed, msg)
+        e_pubs.append(pub), e_msgs.append(msg), e_sigs.append(sig)
+    e_pubs, e_msgs, e_sigs = e_pubs * reps, e_msgs * reps, e_sigs * reps
+    print(f"Ed25519 fixture: {UNIQUE} unique tuples from the host signer, "
+          f"tiled to {BATCH}, in {time.perf_counter() - t0:.1f} s")
+    bad_pk, bad_em, bad_es = list(e_pubs), list(e_msgs), list(e_sigs)
+    for i in range(0, 10):                              # R with a bit flipped
+        bad_es[i] = bytes([e_sigs[i][0] ^ 1]) + e_sigs[i][1:]
+    for i in range(10, 20):                             # S + q
+        sv = int.from_bytes(e_sigs[i][32:], "little") + eq
+        bad_es[i] = e_sigs[i][:32] + sv.to_bytes(32, "little")
+    for i in range(20, 30):                             # S = q
+        bad_es[i] = e_sigs[i][:32] + eq.to_bytes(32, "little")
+    for i in range(30, 40):                             # another message
+        bad_em[i] = bytes([e_msgs[i][0] ^ 0x5A]) + e_msgs[i][1:]
+    no_x = next(y for y in range(2, 100) if pow(
+        (y * y - 1) * pow(ec.d * y * y + 1, -1, ep) % ep, (ep - 1) // 2,
+        ep) != 1)
+    for i in range(40, 50):                             # y has no x
+        bad_pk[i] = no_x.to_bytes(32, "little")
+    for i in range(50, 60):                             # y >= p (y = p + 1)
+        bad_pk[i] = (ep + 1).to_bytes(32, "little")
+    e_want_bad = np.ones(BATCH, bool)
+    e_want_bad[:60] = False
+
+    reset()
+    acc = eddsa.verify_batch("ed25519", e_pubs, e_msgs, e_sigs)
+    _check(acc.all(), f"eddsa.verify_batch rejected {int((~acc).sum())} "
+                      "valid lanes")
+    acc = eddsa.verify_batch("ed25519", bad_pk, bad_em, bad_es)
+    _check((acc == e_want_bad).all(),
+           "eddsa.verify_batch: corrupted lanes wrong "
+           f"({np.flatnonzero(acc != e_want_bad)[:20].tolist()})")
+    ed_counts = snapshot()
+    print("Ed25519 path launches:", json.dumps(ed_counts))
+    ed_kernels = ["mont_mul", "mont_sqr", "ed_add", "ed_dbl",
+                  "windowed_mul_ed"]
+    for name in ed_kernels:
+        _check(ed_counts[name] >= 1,
+               f"kernel {name} was not launched on the Ed25519 path")
+    print("Ed25519 path: valid lanes accept; R bit flip, S + q, S = q, "
+          "another message, y without x and y >= p reject")
+
+    with open(os.path.join(VEC, "wycheproof_subset.jsonl")) as f:
+        erows = [v for v in map(json.loads, f)
+                 if v["scheme"] == "EDDSA" and v["curve"] == "ED25519"]
+    _check(len(erows) == 15, f"expected 15 Ed25519 Wycheproof rows, got "
+                             f"{len(erows)}")
+    acc = eddsa.verify_batch("ed25519", [bytes.fromhex(v["pub"])
+                                         for v in erows],
+                             [bytes.fromhex(v["msg"]) for v in erows],
+                             [bytes.fromhex(v["sig"]) for v in erows])
+    _check(acc.tolist() == [v["result"] == "valid" for v in erows],
+           "Wycheproof Ed25519 rows: wrong results")
+    variants = {"EDDSA25519": "ed25519", "EDDSA25519CTX": "ed25519ctx",
+                "EDDSA25519PH": "ed25519ph"}
+    with open(os.path.join(VEC, "kats_full.jsonl")) as f:
+        kats = [r for r in map(json.loads, f) if r.get("alg") in variants]
+    _check(len(kats) == 8, f"expected 8 EDDSA25519 KAT rows, got {len(kats)}")
+    for r in kats:
+        ctx_ = bytes.fromhex(r["adata_hex"]) if r["adata_hex"] else b""
+        seed, msg = bytes.fromhex(r["priv"]), bytes.fromhex(r["msg_hex"])
+        sig = bytes.fromhex(r["sig"])
+        pub, mine = H.ed25519_sign(hc, seed, msg, variants[r["alg"]], ctx_)
+        _check(mine == sig, f"{r['name']}: the host signer differs")
+        bad = bytes([sig[0] ^ 1]) + sig[1:]
+        acc = eddsa.verify_batch(variants[r["alg"]], [pub] * 3,
+                                 [msg, msg + b"x", msg], [sig, sig, bad],
+                                 context=ctx_)
+        _check(acc.tolist() == [True, False, False],
+               f"{r['name']}: wrong accept mask {acc.tolist()}")
+    print(f"Ed25519 vectors: {len(erows)} Wycheproof rows and {len(kats)} "
+          "KAT rows give their recorded results on the card")
+
+    # measurements of the Ed25519 batch
+    def ed_batch():
+        return eddsa.verify_batch("ed25519", e_pubs, e_msgs, e_sigs)
+
+    for _ in range(2):
+        ed_batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev_ms, host_ms = [], []
+    for _ in range(7):
+        a_ = torch.cuda.Event(enable_timing=True)
+        b_ = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        a_.record()
+        ed_batch()
+        b_.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        ev_ms.append(a_.elapsed_time(b_))
+    e_peak = torch.cuda.max_memory_allocated()
+    e_med = statistics.median(ev_ms)
+    e_rate = BATCH / (e_med / 1e3)
+    print(f"Ed25519 verify batch {BATCH} (eddsa.verify_batch, bytes in, "
+          f"mask out): median {e_med:.3f} ms over 7 (events), host "
+          f"{statistics.median(host_ms):.3f} ms; {e_rate:.1f} verifies/s; "
+          f"all {ev_ms}")
+    print(f"peak device memory: {e_peak} bytes")
+    reset()
+    ed_batch()
+    torch.cuda.synchronize()
+    e_per_batch = snapshot()
+    print("launches per Ed25519 verify batch:", json.dumps(e_per_batch))
+
+    # stage breakdown of one Ed25519 batch: eddsa.verify_batch itself, the
+    # device synchronised at each of its stage marks
+    e_breakdown, e_marked, acc = staged(ed_batch)
+    _check(bool(acc.all()), "Ed25519 stage breakdown: the batch does not "
+                            "accept")
+    _check(list(e_breakdown) == ["parse", "challenge", "decode", "comb",
+                                 "table", "windowed", "accept", "return"],
+           f"Ed25519 stage marks: {list(e_breakdown)}")
+    print("Ed25519 stage ms (host clock, device synchronised at each stage "
+          "mark of eddsa.verify_batch):", json.dumps(e_breakdown))
+    busy_ed = _profile(torch, ed_batch, "Ed25519")
+
+    # kernels 8a, 8b and 7 at the Ed25519 path's shapes (N = 8192)
+    XA8 = ExtPoint(*[t[:, :N].contiguous() for t in XA])
+    XB8 = ExtPoint(*[t[:, :N].contiguous() for t in XB])
+    etab8, edigs8 = e_marked["table"]     # the verify batch's own
+    ed_kern = {
+        "ed_add": (lambda: edpoint.ed_add(ec, XA8, XB8),
+                   lambda: edpoint.ed_add_plain(ec, XA8, XB8), 100, 3,
+                   N * 384, N * 9 * FMUL_SLOTS),
+        "ed_dbl": (lambda: edpoint.ed_dbl(ec, XA8),
+                   lambda: edpoint.ed_dbl_plain(ec, XA8), 100, 3,
+                   N * 224, N * (4 * FSQR_SLOTS + 4 * FMUL_SLOTS)),
+        "windowed_mul_ed": (
+            lambda: megamul.windowed_mul(ec, etab8, edigs8, ExtPoint),
+            lambda: megamul.windowed_mul_plain(ec, etab8, edigs8, ExtPoint),
+            10, 1, N * (16 * 128 + 64 * 4 + 128),
+            N * 64 * (ED_PER_WINDOW[0] * FSQR_SLOTS
+                      + ED_PER_WINDOW[1] * FMUL_SLOTS)),
+    }
+    source.update({"ed_add": "edpoint.cu", "ed_dbl": "edpoint.cu",
+                   "windowed_mul_ed": "windowed.cu"})
+    replaces.update({
+        "ed_add": "libecc_tpu/ops/pallas/edpoint.py:110",
+        "ed_dbl": "libecc_tpu/ops/pallas/edpoint.py:126",
+        "windowed_mul_ed": "libecc_tpu/ops/pallas/megamul.py:161",
+    })
+    time_kernels(ed_kern, ed_counts, e_per_batch, "Ed25519 verify")
+
+    # kernel 1 on the Ed25519 path: under p = 2^255 - 19 at N = 2 * BATCH
+    # (the one decode of A and R), on the decode's own operands: x and y,
+    # the factors of its last product (x*y), and y, the operand of its
+    # first square. Kernel 1's rows carry these numbers under "ed25519".
+    dP = e_marked["decode"][0]
+    dx, dy = dP.x.contiguous(), dP.y.contiguous()
+    n2 = dx.shape[1]
+    _check(n2 == 2 * BATCH, f"the Ed25519 decode ran {n2} lanes")
+    ed_mont = {
+        "mont_mul": (lambda: mont.mont_mul(dx, dy, ectx),
+                     lambda: nn.mont_mul(dx, dy, ectx), 200, 20,
+                     n2 * 96, n2 * FMUL_SLOTS),
+        "mont_sqr": (lambda: mont.mont_sqr(dy, ectx),
+                     lambda: nn.mont_sqr(dy, ectx), 200, 20,
+                     n2 * 64, n2 * FSQR_SLOTS),
+    }
+    for row in lines:
+        if row["name"] in ed_mont:
+            name = row["name"]
+            m = measure(name, *ed_mont[name], n2)
+            m["max_abs_err"] = max(m["max_abs_err"], ed_check_err[name])
+            row["ed25519"] = {"launches": ed_counts[name],
+                              "launches_per_batch": e_per_batch[name], **m}
+            row["max_abs_err"] = results[name]["max_abs_err"]
+
     print(json.dumps({"verify": {
         "batch": BATCH, "median_ms": round(med, 4),
         "verifies_per_s": round(rate, 1),
         "pipelined_verifies_per_s": round(piped, 1),
-        "peak_bytes": peak, "card": smi}}))
+        "busy_share": busy_p256, "peak_bytes": peak, "card": smi}}))
+    print(json.dumps({"verify_ed25519": {
+        "batch": BATCH, "median_ms": round(e_med, 4),
+        "verifies_per_s": round(e_rate, 1), "busy_share": busy_ed,
+        "launches_per_batch": e_per_batch, "stage_ms": e_breakdown,
+        "peak_bytes": e_peak, "card": smi}}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

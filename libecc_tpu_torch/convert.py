@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .nn import core as nn
+from .curves.edwards import ExtPoint
 from .curves.shortw import PrjPoint
 from .sig.keys import KeyBatch
 
@@ -64,6 +65,18 @@ def point_from_jax(curve, x, y, z, device) -> PrjPoint:
     ctx = curve.fp_ctx
     return PrjPoint(fe_from_jax(x, ctx, device), fe_from_jax(y, ctx, device),
                     fe_from_jax(z, ctx, device))
+
+
+def ext_point_from_jax(curve, x, y, z, t, device) -> ExtPoint:
+    """JAX ExtPoint coordinates (numpy) -> the port's ExtPoint."""
+    ctx = curve.fp_ctx
+    return ExtPoint(*[fe_from_jax(v, ctx, device) for v in (x, y, z, t)])
+
+
+def ext_point_to_jax(P: ExtPoint, ctx, k_jax: int) -> tuple:
+    """The port's ExtPoint -> JAX Montgomery-domain coordinates (numpy),
+    for ``libecc_tpu.curves.edwards.ExtPoint(*map(jnp.asarray, ...))``."""
+    return tuple(fe_to_jax(v, ctx, k_jax) for v in P)
 
 
 def keys_from_jax(curve, x, y, z, alg: str = "ECDSA",

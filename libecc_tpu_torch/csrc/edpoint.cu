@@ -1,0 +1,86 @@
+// Kernels 8a and 8b: batched twisted-Edwards extended add and double.
+//
+// Replace the TPU kernels libecc_tpu/ops/pallas/edpoint.py:_build_add
+// (:110 -> _pallas_call :92, pallas_call :99; public point_add :165, body
+// _add_body :49) and _build_dbl (:126; public point_dbl :171, body
+// _dbl_body :75), for a = -1 (Ed25519).
+//
+// Bound on the H100: integer-multiply issue. An add is 9 field products
+// for 12 x 4K bytes of traffic per lane (8 coordinates in, 4 out): at
+// K = 8 about 2,400 multiply-add slots for 384 bytes, well above the
+// card's slot-to-byte ratio; a double is 4 squares and 4 products for 7 x
+// 32 bytes. Design: as kernels 2 and 3, one thread per lane, the whole
+// formula in registers.
+#include "edpoint.cuh"
+
+namespace ecc {
+
+template <int K>
+__global__ void __launch_bounds__(256)
+ed_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
+              const uint32_t* __restrict__ y1,
+              const uint32_t* __restrict__ z1,
+              const uint32_t* __restrict__ t1,
+              const uint32_t* __restrict__ x2,
+              const uint32_t* __restrict__ y2,
+              const uint32_t* __restrict__ z2,
+              const uint32_t* __restrict__ t2, uint32_t* __restrict__ x3,
+              uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
+              uint32_t* __restrict__ t3, long long n) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  const ExtPt<K> P = load_ext<K>(x1, y1, z1, t1, n, lane);
+  const ExtPt<K> Q = load_ext<K>(x2, y2, z2, t2, n, lane);
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add_m1<K>(P, Q, C));
+}
+
+template <int K>
+__global__ void __launch_bounds__(256)
+ed_dbl_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
+              const uint32_t* __restrict__ y1,
+              const uint32_t* __restrict__ z1, uint32_t* __restrict__ x3,
+              uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
+              uint32_t* __restrict__ t3, long long n) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  const Fe<K> X = load_fe<K>(x1, n, lane);
+  const Fe<K> Y = load_fe<K>(y1, n, lane);
+  const Fe<K> Z = load_fe<K>(z1, n, lane);
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_dbl_m1<K>(X, Y, Z, C));
+}
+
+constexpr int kThreads = 256;
+
+inline unsigned blocks_for(long long n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace ecc
+
+extern "C" {
+
+// in: x1, y1, z1, t1, x2, y2, z2, t2; out: x3, y3, z3, t3 (device
+// pointers). Returns cudaErrorInvalidValue for a curve with a != -1.
+int ed_add_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
+              uint32_t* const* out, long long n, void* stream) {
+  if (C->a_kind != ecc::ED_A_M1) return (int)cudaErrorInvalidValue;
+  if (n > 0)
+    ecc::ed_add_kernel<8><<<ecc::blocks_for(n), ecc::kThreads, 0,
+                            (cudaStream_t)stream>>>(
+        *C, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], out[0],
+        out[1], out[2], out[3], n);
+  return (int)cudaGetLastError();
+}
+
+// in: x1, y1, z1; out: x3, y3, z3, t3.
+int ed_dbl_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
+              uint32_t* const* out, long long n, void* stream) {
+  if (C->a_kind != ecc::ED_A_M1) return (int)cudaErrorInvalidValue;
+  if (n > 0)
+    ecc::ed_dbl_kernel<8><<<ecc::blocks_for(n), ecc::kThreads, 0,
+                            (cudaStream_t)stream>>>(
+        *C, in[0], in[1], in[2], out[0], out[1], out[2], out[3], n);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

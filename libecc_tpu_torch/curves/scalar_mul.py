@@ -12,7 +12,12 @@ Port of the public paths of ``libecc_tpu/curves/scalar_mul.py``:
   and 3) and the whole window loop as kernel 4, at kernel 4's window
   width ``megamul.WINDOW`` (the reference's w -> w-1 fallback has no
   counterpart, so the width is not a parameter).
-* ``fixed_base_double_mul_public``: u*G + v*Q for ECDSA verification.
+* ``fixed_base_double_mul_public``: u*G + v*Q for ECDSA and EdDSA
+  verification.
+
+Each works on both point classes: short-Weierstrass projective points
+(three coordinates; kernels 2, 3 and 4) and twisted-Edwards extended
+points (four; kernels 8a, 8b and 7).
 """
 
 from __future__ import annotations
@@ -20,31 +25,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import stages
 from ..nn import core as nn
 from ..ops.cuda import megamul
 from ..ref import hostref
+from .edwards import EdwardsCurve
 
 COMB_W = 8              # comb window width: 2^8-entry tables, nbits/8 adds
 
-# (curve name, p, w, nbits) -> (np.uint32[nwin*2^w, 3, K], nwin)
+# (curve name, p, w, nbits) -> (np.uint32[nwin*2^w, ncoord, K], nwin)
 _COMB_CACHE: dict = {}
-# (same key, device) -> int32[nwin, 3K, 2^w] on that device
+# (same key, device) -> int32[nwin, ncoord*K, 2^w] on that device
 _COMB_DEV: dict = {}
 
 
-def _comb_table_host(c, nbits: int):
-    """Host-precomputed comb table as (np.uint32[nwin*2^w, 3, K], nwin),
-    w = COMB_W: row j*2^w + d holds d * 2^(w j) * G in the port's
-    Montgomery domain, Z = 1 for affine entries and the identity
-    (0 : 1 : 0) at d = 0. The same table as the reference's, in the port's
-    limb layout."""
-    ctx = c.fp_ctx
-    p, w = ctx.p_int, COMB_W
-    key = (c.name, p, w, nbits)
-    if key in _COMB_CACHE:
-        return _COMB_CACHE[key]
-    nwin = -(-nbits // w)
-    ref = hostref.WCurve(p, c.a, c.b, c.gx, c.gy, c.q, c.h)
+def _comb_rows_shortw(c, nwin: int, w: int):
+    ref = hostref.WCurve(c.fp_ctx.p_int, c.a, c.b, c.gx, c.gy, c.q, c.h)
     base = (c.gx, c.gy)
     rows = []
     for _ in range(nwin):
@@ -54,8 +50,40 @@ def _comb_table_host(c, nbits: int):
             acc = hostref.ec_add(ref, acc, base)
             rows.append((0, 1, 0) if acc is None else (acc[0], acc[1], 1))
         base = hostref.ec_mul(ref, 1 << w, base)
+    return rows
+
+
+def _comb_rows_edwards(c, nwin: int, w: int):
+    """The host oracle's extended comb, made affine."""
+    p = c.fp_ctx.p_int
+    ref = hostref.EdCurve(p, c.a, c.d, c.gx, c.gy, c.q, c.h)
+    rows = []
+    for row in hostref.ed_base_comb(ref, nwin, w):
+        for x, y, z, _t in row:
+            zi = pow(z, -1, p)
+            x, y = x * zi % p, y * zi % p
+            rows.append((x, y, 1, x * y % p))
+    return rows
+
+
+def _comb_table_host(c, nbits: int):
+    """Host-precomputed comb table as (np.uint32[nwin*2^w, ncoord, K],
+    nwin), w = COMB_W: row j*2^w + d holds d * 2^(w j) * G in the port's
+    Montgomery domain; affine entries have Z = 1 (and T = x y on Edwards
+    curves), the identity at d = 0 is (0 : 1 : 0) or (0 : 1 : 1 : 0).
+    The same table as the reference's, in the port's limb layout. Built
+    once per process (Ed25519: 32 x 256 host Edwards adds)."""
+    ctx = c.fp_ctx
+    p, w = ctx.p_int, COMB_W
+    key = (c.name, p, w, nbits)
+    if key in _COMB_CACHE:
+        return _COMB_CACHE[key]
+    nwin = -(-nbits // w)
+    rows = (_comb_rows_edwards if isinstance(c, EdwardsCurve)
+            else _comb_rows_shortw)(c, nwin, w)
+    ncoord = len(rows[0])
     vals = [v * ctx.R % p for row in rows for v in row]
-    out = nn.batch_to_limbs(vals, ctx.k).T.reshape(len(rows), 3, ctx.k)
+    out = nn.batch_to_limbs(vals, ctx.k).T.reshape(len(rows), ncoord, ctx.k)
     _COMB_CACHE[key] = (np.ascontiguousarray(out), nwin)
     return _COMB_CACHE[key]
 
@@ -65,8 +93,7 @@ def _comb_table_dev(c, nbits: int, device):
     key = (c.name, c.fp_ctx.p_int, w, nbits, str(torch.device(device)))
     if key not in _COMB_DEV:
         tab, nwin = _comb_table_host(c, nbits)
-        k = c.fp_ctx.k
-        t = tab.reshape(nwin, 1 << w, 3 * k).transpose(0, 2, 1)
+        t = tab.reshape(nwin, 1 << w, -1).transpose(0, 2, 1)
         _COMB_DEV[key] = nn.upload(np.ascontiguousarray(t), device)
     return _COMB_DEV[key]
 
@@ -91,13 +118,13 @@ def fixed_base_mul(c, m, nbits: int | None = None):
     if nbits is None:
         nbits = c.scalar_bits()
     k = c.fp_ctx.k
-    tab = _comb_table_dev(c, nbits, m.device)         # (nwin, 3K, 2^w)
+    tab = _comb_table_dev(c, nbits, m.device)      # (nwin, ncoord*K, 2^w)
     digs = _digits(m, nbits, COMB_W, msw_first=False)
     acc = c.pinf(batch_shape=m.shape[1:], device=m.device)
     cls = type(acc)
     for j in range(tab.shape[0]):
-        sel = tab[j].index_select(1, digs[j])            # (3K, N)
-        acc = c.padd(acc, cls(sel[:k], sel[k:2 * k], sel[2 * k:]))
+        sel = tab[j].index_select(1, digs[j])         # (ncoord*K, N)
+        acc = c.padd(acc, cls(*sel.split(k)))
     return acc
 
 
@@ -108,8 +135,9 @@ def _window_digits(m, nbits: int):
 
 
 def _build_mul_table(c, P):
-    """[0..2^WINDOW-1]P stacked as int32[2^WINDOW, 3, K, N]: even entries
-    by doubling (kernel 3), odd entries by adding P (kernel 2)."""
+    """[0..2^WINDOW-1]P stacked as int32[2^WINDOW, ncoord, K, N]: even
+    entries by doubling (kernel 3 or 8b), odd entries by adding P (kernel 2
+    or 8a)."""
     table = [c.pinf(like=P), P]
     for i in range(2, 1 << megamul.WINDOW):
         table.append(c.pdbl(table[i // 2]) if i % 2 == 0
@@ -120,7 +148,8 @@ def _build_mul_table(c, P):
 def windowed_mul_public(c, m, P, nbits: int | None = None):
     """Fixed-window m*P for PUBLIC scalars: per-lane [0..2^w-1]P table,
     then nbits/w windows of (w doublings + one table add), all windows in
-    one launch of kernel 4 on the card (w = megamul.WINDOW)."""
+    one launch of kernel 4 (or 7, Edwards) on the card (w =
+    megamul.WINDOW)."""
     if nbits is None:
         nbits = c.scalar_bits()
     table = _build_mul_table(c, P)
@@ -131,6 +160,13 @@ def windowed_mul_public(c, m, P, nbits: int | None = None):
 def fixed_base_double_mul_public(c, u, v, Q, nbits: int | None = None):
     """u*G + v*Q for PUBLIC scalars: comb for the fixed base G, windowed
     multiply for Q, one final complete add."""
+    if nbits is None:
+        nbits = c.scalar_bits()
     uG = fixed_base_mul(c, u, nbits=nbits)
-    vQ = windowed_mul_public(c, v, Q, nbits=nbits)
+    stages.mark("comb", uG)
+    table = _build_mul_table(c, Q)
+    digs = _window_digits(v, nbits)
+    stages.mark("table", table, digs)
+    vQ = megamul.windowed_mul(c, table, digs, type(Q))
+    stages.mark("windowed", vQ)
     return c.padd(uG, vQ)

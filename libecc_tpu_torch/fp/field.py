@@ -146,3 +146,28 @@ def is_zero_mask(a, ctx: FpCtx = None):
 
 def select(cond, a, b):
     return torch.where(cond[None], a, b)
+
+
+def sqrt(a, ctx: FpCtx):
+    """Batched square root (Montgomery domain) -> (root, exists mask).
+    Port of ``libecc_tpu/fp/field.py:sqrt`` (:189-213). Where a is not a
+    square the root is garbage and the mask False.
+
+    p = 3 (mod 4): r = a^((p+1)/4). p = 5 (mod 8) (Atkin's variant):
+    r = a^((p+3)/8), times sqrt(-1) = 2^((p-1)/4) where r^2 != a; a = 0
+    gives root 0. The general Tonelli-Shanks branch is not ported: no
+    curve of the port needs it yet, and it raises."""
+    p = ctx.p_int
+    if p % 4 == 3:
+        r = pow_static(a, (p + 1) // 4, ctx)
+        return r, eq_mask(sqr(r, ctx), a)
+    if p % 8 == 5:
+        r = pow_static(a, (p + 3) // 8, ctx)
+        sqrtm1 = ctx.const(pow(2, (p - 1) // 4, p), like=a)
+        fix = ~eq_mask(sqr(r, ctx), a)
+        r = select(fix, mul(r, sqrtm1, ctx), r)
+        ok = eq_mask(sqr(r, ctx), a)
+        z0 = is_zero_mask(a)
+        return select(z0, ctx.zero(like=a), r), ok | z0
+    raise NotImplementedError(
+        "fp.sqrt: Tonelli-Shanks for p = 1 (mod 8) is not ported yet")

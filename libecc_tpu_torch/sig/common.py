@@ -8,6 +8,7 @@ through kernel 1 with q's constants (one binary serves p and q).
 from __future__ import annotations
 
 import hashlib
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -28,6 +29,30 @@ def digests_to_words(digs: list[bytes]) -> np.ndarray:
                         dtype=">u4")
     return np.ascontiguousarray(arr.reshape(len(digs), -1).T).astype(
         np.uint32)
+
+
+def batch_digests(hash_name: str, msgs: list[bytes], device) -> list[bytes]:
+    """SHA-512 digests of a message batch, hashed on `device`. Port of
+    ``libecc_tpu/sig/common.py:batch_digests`` (:30-70): the messages are
+    bucketed by padded block count and each bucket is hashed by one
+    ``sha512_device`` call. Unlike the reference, tiny buckets are not
+    hashed on the host (the port has no host hash layer) and buckets are
+    not padded to a power of two (nothing is traced)."""
+    if hash_name.replace("-", "").upper() != "SHA512":
+        raise ValueError(f"batch_digests: hash {hash_name!r} is not ported; "
+                         "SHA512 is")
+    groups = defaultdict(list)
+    for i, m in enumerate(msgs):
+        groups[sha2.nblocks_sha512(len(m))].append(i)
+    out: list = [None] * len(msgs)
+    nb = sha2.SHA512_DIGEST_BYTES
+    for idxs in groups.values():
+        words = sha2.sha512_device(nn.upload(
+            sha2.pack_blocks_sha512([msgs[i] for i in idxs]), device))
+        raw = nn.to_host(words).T.astype(">u4").tobytes()
+        for j, i in enumerate(idxs):
+            out[i] = raw[j * nb:(j + 1) * nb]
+    return out
 
 
 def e_from_msgs(msgs: list[bytes], q_ctx: FpCtx, device):

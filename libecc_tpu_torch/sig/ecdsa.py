@@ -16,6 +16,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import stages
 from ..nn import core as nn
 from ..fp import field as fp
 from ..curves.shortw import PrjPoint, ShortWCurve, on_curve_mask, \
@@ -47,7 +48,9 @@ def verify_core(curve: ShortWCurve, pub: PrjPoint, e, r, s):
     sinv = common.q_inv(s, q_ctx)
     u = common.q_mul(e, sinv, q_ctx)
     v = common.q_mul(r, sinv, q_ctx)
+    stages.mark("scalars", u, v)
     fia_ok = on_curve_mask(curve, pub)
+    stages.mark("key on curve", fia_ok)
     W = scalar_mul.fixed_base_double_mul_public(curve, u, v, pub)
     fia_ok = fia_ok & on_curve_mask(curve, W)
     in_range = in_range & fia_ok
@@ -65,10 +68,12 @@ def verify_core(curve: ShortWCurve, pub: PrjPoint, e, r, s):
             rq_ok = nn.lt_mask(r, q_ctx.col(p_int - q_int, r.device))
             hit = hit | (fp.eq_mask(W.x, fp.mul(rq, W.z, p_ctx), p_ctx)
                          & rq_ok)
-        return in_range & (~inf) & hit
-    wx, _, inf = to_affine_plain(curve, W)
-    wx_mod_q = common.x_coord_mod_q(wx, p_ctx, q_ctx)
-    return in_range & (~inf) & nn.eq_mask(wx_mod_q, r)
+    else:
+        wx, _, inf = to_affine_plain(curve, W)
+        hit = nn.eq_mask(common.x_coord_mod_q(wx, p_ctx, q_ctx), r)
+    acc = in_range & (~inf) & hit
+    stages.mark("accept", acc)
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +151,7 @@ def verify_batch_async(keys, msgs: list[bytes], sigs: list[bytes],
     e = common.e_from_digest_bits(words, sha2.DIGEST_BITS, q_ctx)
     r = nn.be_rows_to_limbs_dev(sig_u8[:, :nb], q_ctx.k)
     s = nn.be_rows_to_limbs_dev(sig_u8[:, nb:], q_ctx.k)
+    stages.mark("hash", e, r, s)
     return verify_core(curve, keys.pub, e, r, s)
 
 

@@ -1,0 +1,43 @@
+"""Stage marks inside the verify paths, for per-stage breakdowns.
+
+The verify paths call ``mark(name, *values)`` where each stage ends, with
+the stage's outputs. Nothing happens unless a caller has installed a
+callback with ``on_mark``; a breakdown (``chip_smoke.py``) installs one that
+synchronises the device and reads the clock, so it times the stages of the
+code a user calls rather than a copy of it.
+
+Marks, in the order one batch passes them:
+
+* ``sig.eddsa.verify_batch``: "parse", "challenge", then the core's;
+* ``sig.ecdsa.verify_batch_async`` (fused bytes-in): "hash", then the
+  core's;
+* ``sig.ecdsa.verify_core``: "scalars" (u, v), "key on curve", then the
+  double multiply's, then "accept";
+* ``sig.eddsa.verify_core``: "decode" (the 2N-lane point), then the double
+  multiply's, then "accept";
+* ``curves.scalar_mul.fixed_base_double_mul_public``: "comb" (u*G),
+  "table" (the table and the window digits), "windowed" (v*Q).
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+_callback = None
+
+
+def mark(name: str, *values) -> None:
+    """End of stage ``name``; ``values`` are its outputs."""
+    if _callback is not None:
+        _callback(name, *values)
+
+
+@contextmanager
+def on_mark(callback):
+    """Call ``callback(name, *values)`` at every mark inside the block."""
+    global _callback
+    prev, _callback = _callback, callback
+    try:
+        yield
+    finally:
+        _callback = prev

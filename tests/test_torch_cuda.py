@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from libecc_tpu_torch.curves import params, scalar_mul
+from libecc_tpu_torch.curves import edwards, params, scalar_mul
+from libecc_tpu_torch.curves.edwards import EdwardsCurve, ExtPoint
 from libecc_tpu_torch.curves.shortw import PrjPoint
+from libecc_tpu_torch.fp.field import FpCtx
 from libecc_tpu_torch.nn import core as nn
-from libecc_tpu_torch.ops.cuda import megamul, mont, point
+from libecc_tpu_torch.ops.cuda import edpoint, megamul, mont, point
 from libecc_tpu_torch.ref import hostref as H
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +111,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     digs = torch.zeros((64, 3), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):                    # w = 3
         megamul.windowed_mul(c, table, digs, PrjPoint)
+
+
+
+def _ed_affine(c, rng, n):
+    """n host Ed25519 points (16 distinct ones repeated), lane 0 the
+    identity (0, 1)."""
+    hc = H.EdCurve(c.fp_ctx.p_int, c.a, c.d, c.gx, c.gy, c.q, c.h)
+    base = [H.ed_base_mul(hc, k) for k in _ints(rng, 16, c.q)]
+    pts = [base[i % 16] for i in range(n)]
+    pts[0] = (0, 1)
+    return pts
+
+
+def _ed_extended(c, rng, pts, dev):
+    """Host affine points -> ExtPoint (lam x : lam y : lam : lam x y) with
+    random lam."""
+    p = c.fp_ctx.p_int
+    lam = [1 + v % (p - 1) for v in _ints(rng, len(pts), p)]
+    coords = zip(*[(x * m, y * m, m, x * y * m)
+                   for (x, y), m in zip(pts, lam)])
+    return ExtPoint(*[c.fp_ctx.from_ints([v % p for v in col], dev)
+                      for col in coords])
+
+
+def test_ed_kernels_match_plain(dev):
+    c = edwards.get_edwards_curve("ED25519")
+    p = c.fp_ctx.p_int
+    rng = np.random.RandomState(74)
+    a_pts, b_pts = _ed_affine(c, rng, 777), _ed_affine(c, rng, 777)
+    b_pts[1] = a_pts[1]                                 # P = Q
+    b_pts[2] = ((-a_pts[2][0]) % p, a_pts[2][1])        # P = -Q
+    b_pts[3] = (0, 1)                                   # P + O
+    A, B = _ed_extended(c, rng, a_pts, dev), _ed_extended(c, rng, b_pts, dev)
+    before = dict(edpoint.launches)
+    got = edpoint.ed_add(c, A, B)
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, edpoint.ed_add_plain(c, A, B)))
+    got = edpoint.ed_dbl(c, A)
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, edpoint.ed_dbl_plain(c, A)))
+    assert edpoint.launches["ed_add"] == before["ed_add"] + 1
+    assert edpoint.launches["ed_dbl"] == before["ed_dbl"] + 1
+
+def test_ed_windowed_kernel_matches_plain(dev):
+    c = edwards.get_edwards_curve("ED25519")
+    rng = np.random.RandomState(75)
+    n = 300
+    P = _ed_extended(c, rng, _ed_affine(c, rng, n), dev)
+    ms = [0, 1, 2, 1 << 100] + _ints(rng, n - 4, c.q)
+    mt = nn.upload(nn.batch_to_limbs(ms, 8), dev)
+    table = scalar_mul._build_mul_table(c, P)
+    digs = scalar_mul._window_digits(mt, c.scalar_bits())
+    before = megamul.launches["windowed_mul_ed"]
+    got = megamul.windowed_mul(c, table, digs, ExtPoint)
+    want = megamul.windowed_mul_plain(c, table, digs, ExtPoint)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert megamul.launches["windowed_mul_ed"] == before + 1
+
+
+def test_ed_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    c = edwards.get_edwards_curve("ED25519")
+    one = c.fp_ctx.from_ints([1, 2, 3], dev)
+    P = ExtPoint(one, one, one, one)
+    a1 = EdwardsCurve("A1", c.fp_ctx, 1, c.d, 0, 1, c.q, c.h)       # a = 1
+    with pytest.raises(ValueError):
+        edpoint.ed_add(a1, P, P)
+    with pytest.raises(ValueError):
+        edpoint.ed_dbl(a1, P)
+    k12 = EdwardsCurve("K12", FpCtx(params.get_curve("P-384").fp_ctx.p_int),
+                       -1, 2, 0, 1, c.q, 1)                          # K = 12
+    P12 = ExtPoint(*[k12.fp_ctx.from_ints([1, 2], dev)] * 4)
+    with pytest.raises(ValueError):
+        edpoint.ed_add(k12, P12, P12)
+    with pytest.raises(ValueError):
+        edpoint.ed_dbl(k12, P12)
+    short = ExtPoint(*[t[:, :2].contiguous() for t in P])
+    with pytest.raises(ValueError):                    # P, Q differ in N
+        edpoint.ed_add(c, P, short)
+    with pytest.raises(ValueError):                    # not contiguous
+        edpoint.ed_add(c, ExtPoint(*[t[:, ::2] for t in P]),
+                       ExtPoint(*[t[:, ::2] for t in P]))
+    digs = torch.zeros((64, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                    # three coordinates
+        megamul.windowed_mul(c, torch.zeros((16, 3, 8, 3), dtype=torch.int32,
+                                            device=dev), digs, ExtPoint)
+    with pytest.raises(ValueError):                    # a = 1
+        megamul.windowed_mul(a1, torch.zeros((16, 4, 8, 3), dtype=torch.int32,
+                                             device=dev), digs, ExtPoint)

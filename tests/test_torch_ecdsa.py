@@ -15,7 +15,7 @@ from libecc_tpu.curves import params as jparams
 from libecc_tpu.nn import core as jnn
 from libecc_tpu.sig import ecdsa as jecdsa
 
-from libecc_tpu_torch import convert
+from libecc_tpu_torch import convert, stages
 from libecc_tpu_torch.curves import params
 from libecc_tpu_torch.curves.shortw import PrjPoint
 from libecc_tpu_torch.nn import core as nn
@@ -104,12 +104,17 @@ def test_wycheproof_p256_rows():
     good = [v for v in rows if len(bytes.fromhex(v["sig"])) == 64]
     kb = K.import_pub_raw(C, "ECDSA", [bytes.fromhex(v["pub"]) for v in good],
                           device="cpu")
-    acc = ecdsa.verify_batch(kb, [bytes.fromhex(v["msg"]) for v in good],
-                             [bytes.fromhex(v["sig"]) for v in good],
-                             good[0]["hash"])
+    marks = []
+    with stages.on_mark(lambda name, *vals: marks.append((name, vals))):
+        acc = ecdsa.verify_batch(kb, [bytes.fromhex(v["msg"]) for v in good],
+                                 [bytes.fromhex(v["sig"]) for v in good],
+                                 good[0]["hash"])
     fails = [(v["tcId"], v["comment"]) for v, a in zip(good, acc)
              if bool(a) != (v["result"] == "valid")]
     assert not fails
+    assert [m[0] for m in marks] == ["scalars", "key on curve", "comb",
+                                     "table", "windowed", "accept"]
+    assert (marks[-1][1][0].numpy() == acc).all()
     bad_len = [v for v in rows if v not in good]
     assert len(bad_len) == 4
     for v in bad_len:             # malformed length: the API raises (rejected)
