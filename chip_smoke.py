@@ -7,21 +7,25 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It builds the port's CUDA kernels from libecc_tpu_torch/csrc with nvcc,
 checks each kernel bitwise against its plain PyTorch version on the card,
-and drives two paths at batch 8192, bytes in and accept mask out:
+and drives three paths at batch 8192, bytes in:
 
 1. batched P-256 ECDSA verification, through verify_batch,
-   verify_batch_async and verify_batches;
-2. batched Ed25519 verification, through eddsa.verify_batch.
+   verify_batch_async and verify_batches (accept mask out);
+2. batched Ed25519 verification, through eddsa.verify_batch (accept mask
+   out);
+3. batch verification (one accept for the whole batch), through
+   batch_verify.ecfsdsa_verify_batch (P-256), bip0340_verify_batch
+   (secp256k1) and eddsa_verify_batch (Ed25519), and the joint-table
+   Straus straus_double_mul_public beside the separate-table one.
 
-For each path it checks the accept masks (valid lanes, corrupted lanes,
-the Wycheproof rows, and for Ed25519 the RFC 8032 KAT rows), counts the
-kernel launches of the path's own run, and times the verify batch, its
-stages and each kernel. It imports neither JAX nor the JAX package. Any
-failed phase makes it exit non-zero before the result lines; without a
-CUDA device it exits 1.
+For each path it checks the results (valid lanes or batches, corrupted
+ones, the Wycheproof and KAT rows), counts the kernel launches of the
+path's own run, and times the batch, its stages and each kernel. It
+imports neither JAX nor the JAX package. Any failed phase makes it exit
+non-zero before the result lines; without a CUDA device it exits 1.
 
-The last two lines of standard output are one JSON object listing the
-kernels and one JSON object {"ok": true, "device": {...}}.
+The last lines of standard output are one JSON object per path, one
+listing the kernels and one JSON object {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -50,6 +54,9 @@ FMUL_SLOTS = 2 * (2 * K * K) + K                       # wide products count 2
 FSQR_SLOTS = 2 * (K * (K - 1) // 2 + K + K * K) + K
 PER_WINDOW = (22, 30)                                  # (squares, products), w=4
 ED_PER_WINDOW = (16, 25)                # 4 dbl-2008-hwcd + add-2008-hwcd-3
+STRAUS_PER_WINDOW = (22, 44)            # kernel 6: one more complete add
+ED_STRAUS_PER_WINDOW = (16, 34)         # kernel 6-ed: one more extended add
+JOINT_NDBL = 2                          # the joint Straus step: 2^2*acc + T
 VEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                    "vectors")
 
@@ -140,13 +147,14 @@ def main() -> int:
     import numpy as np
     from libecc_tpu_torch import stages
     from libecc_tpu_torch.nn import core as nn
-    from libecc_tpu_torch.curves import edwards, params, scalar_mul
+    from libecc_tpu_torch.curves import edwards, params, scalar_mul, shortw
     from libecc_tpu_torch.curves.edwards import ExtPoint
     from libecc_tpu_torch.curves.shortw import PrjPoint
     from libecc_tpu_torch.ops.cuda import build, edpoint, mont, point, \
         megamul
     from libecc_tpu_torch.ref import hostref as H
-    from libecc_tpu_torch.sig import ecdsa, eddsa, keys as K_
+    from libecc_tpu_torch.sig import batch_verify as bv, ecdsa, eddsa, \
+        keys as K_
 
     dev = torch.device("cuda")
     timer = Timer(torch)
@@ -251,7 +259,7 @@ def main() -> int:
 
     def affine_points(n, uniq=64):
         ks = [1 + (v % (q - 1)) for v in rand_ints(uniq, q)]
-        pts = [H.ec_mul(wc, k_, (c.gx, c.gy)) for k_ in ks]
+        pts = [H.ec_base_mul(wc, k_) for k_ in ks]
         return [pts[i % uniq] for i in range(n)]
 
     def projective(pts):
@@ -312,7 +320,7 @@ def main() -> int:
     # 4. the main path at batch 8192 ------------------------------------
     t0 = time.perf_counter()
     privs = [1 + v % (q - 1) for v in rand_ints(UNIQUE, q)]
-    pubs = [H.ec_mul(wc, d, (c.gx, c.gy)) for d in privs]
+    pubs = [H.ec_base_mul(wc, d) for d in privs]
     msgs = [rng.bytes(32) for _ in range(UNIQUE)]
     sigs = []
     for d, msg in zip(privs, msgs):
@@ -358,6 +366,55 @@ def main() -> int:
 
     def snapshot():
         return {k_: v for d in counts for k_, v in d.items()}
+
+    def time_batch(fn, label, marks, check):
+        """Time one batch of a path: the median of 7 CUDA-event timings
+        after 2 warm-ups (check(result) must hold on each), the host time,
+        the peak device memory, the launches of one batch, the stage
+        breakdown (stage marks in the order marks) and the busy share.
+        Returns the report and the staged run's marked values."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev_ms, host_ms, ret_ms = [], [], []
+        for _ in range(7):
+            a_ = torch.cuda.Event(enable_timing=True)
+            b_ = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            a_.record()
+            out = fn()
+            b_.record()
+            ret_ms.append((time.perf_counter() - h0) * 1e3)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            ev_ms.append(a_.elapsed_time(b_))
+            _check(check(out), f"{label}: a timed batch gives a wrong result")
+        peak = torch.cuda.max_memory_allocated()
+        reset()
+        fn()
+        torch.cuda.synchronize()
+        per = snapshot()
+        bd, marked, out = staged(fn)
+        _check(check(out), f"{label}: the staged batch gives a wrong result")
+        _check(list(bd) == marks, f"{label} stage marks: {list(bd)}")
+        med = statistics.median(ev_ms)
+        print(f"{label} batch {BATCH}: median {med:.3f} ms over 7 (events), "
+              f"host {statistics.median(host_ms):.3f} ms, of which the call "
+              f"itself {statistics.median(ret_ms):.3f} ms before the "
+              f"synchronise; {BATCH / (med / 1e3):.1f} per s; all {ev_ms}; "
+              f"peak device memory {peak} bytes")
+        print(f"{label} launches per batch:", json.dumps(per))
+        print(f"{label} stage ms (host clock, device synchronised at each "
+              "stage mark):", json.dumps(bd))
+        return {"batch": BATCH, "median_ms": round(med, 4),
+                "per_s": round(BATCH / (med / 1e3), 1),
+                "host_median_ms": round(statistics.median(host_ms), 4),
+                "all_ms": [round(x, 4) for x in ev_ms],
+                "busy_share": _profile(torch, fn, label),
+                "launches_per_batch": per, "stage_ms": bd,
+                "peak_bytes": peak}, marked
 
     reset()
     acc = ecdsa.verify_batch(kb, msgs, sigs)
@@ -439,35 +496,14 @@ def main() -> int:
           "also through the fused bytes-in path, tiled to 64 lanes")
 
     # 5. measurements ---------------------------------------------------
-    def one_batch():
-        return ecdsa.verify_batch_async(kb, msgs, sigs)
-
-    for _ in range(2):
-        one_batch()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ev_ms, host_ms, ret_ms = [], [], []
-    for _ in range(7):
-        a_ = torch.cuda.Event(enable_timing=True)
-        b_ = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        a_.record()
-        one_batch()
-        b_.record()
-        ret_ms.append((time.perf_counter() - h0) * 1e3)
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - h0) * 1e3)
-        ev_ms.append(a_.elapsed_time(b_))
-    peak = torch.cuda.max_memory_allocated()
-    med = statistics.median(ev_ms)
-    rate = BATCH / (med / 1e3)
-    print(f"verify batch {BATCH} (bytes in, verify_batch_async + sync): "
-          f"median {med:.3f} ms over 7 (events), host "
-          f"{statistics.median(host_ms):.3f} ms, of which the call itself "
-          f"{statistics.median(ret_ms):.3f} ms before the synchronise; "
-          f"{rate:.1f} verifies/s; all {ev_ms}")
-    print(f"peak device memory: {peak} bytes")
+    # one batch through verify_batch_async (bytes in, accept mask out), the
+    # stage breakdown from its stage marks, and the profiler's busy share
+    p256, marked = time_batch(
+        lambda: ecdsa.verify_batch_async(kb, msgs, sigs),
+        "P-256 ECDSA verify", ["hash", "scalars", "key on curve", "comb",
+                               "table", "windowed", "accept", "return"],
+        lambda acc_: bool(acc_.all()))
+    per_batch = p256["launches_per_batch"]
 
     nb = 8
     torch.cuda.synchronize()
@@ -478,25 +514,6 @@ def main() -> int:
     piped = nb * BATCH / dt
     print(f"verify_batches {nb} x {BATCH} at depth 3: {dt * 1e3:.1f} ms, "
           f"{piped:.1f} verifies/s")
-
-    reset()
-    one_batch()
-    torch.cuda.synchronize()
-    per_batch = snapshot()
-    print("launches per verify batch:", json.dumps(per_batch))
-
-    # breakdown of one batch by stage: verify_batch_async itself, the
-    # device synchronised at each of its stage marks
-    breakdown, marked, acc = staged(one_batch)
-    _check(bool(acc.all()), "P-256 stage breakdown: the batch does not accept")
-    _check(list(breakdown) == ["hash", "scalars", "key on curve", "comb",
-                               "table", "windowed", "accept", "return"],
-           f"P-256 stage marks: {list(breakdown)}")
-    print("stage ms (host clock, device synchronised at each stage mark of "
-          "verify_batch_async):", json.dumps(breakdown))
-
-    # device busy share of one batch, from the profiler's kernel times
-    busy_p256 = _profile(torch, one_batch, "P-256")
 
     # each kernel at the main path's shapes (N = 8192)
     N = BATCH
@@ -702,51 +719,14 @@ def main() -> int:
     print(f"Ed25519 vectors: {len(erows)} Wycheproof rows and {len(kats)} "
           "KAT rows give their recorded results on the card")
 
-    # measurements of the Ed25519 batch
-    def ed_batch():
-        return eddsa.verify_batch("ed25519", e_pubs, e_msgs, e_sigs)
-
-    for _ in range(2):
-        ed_batch()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ev_ms, host_ms = [], []
-    for _ in range(7):
-        a_ = torch.cuda.Event(enable_timing=True)
-        b_ = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        a_.record()
-        ed_batch()
-        b_.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - h0) * 1e3)
-        ev_ms.append(a_.elapsed_time(b_))
-    e_peak = torch.cuda.max_memory_allocated()
-    e_med = statistics.median(ev_ms)
-    e_rate = BATCH / (e_med / 1e3)
-    print(f"Ed25519 verify batch {BATCH} (eddsa.verify_batch, bytes in, "
-          f"mask out): median {e_med:.3f} ms over 7 (events), host "
-          f"{statistics.median(host_ms):.3f} ms; {e_rate:.1f} verifies/s; "
-          f"all {ev_ms}")
-    print(f"peak device memory: {e_peak} bytes")
-    reset()
-    ed_batch()
-    torch.cuda.synchronize()
-    e_per_batch = snapshot()
-    print("launches per Ed25519 verify batch:", json.dumps(e_per_batch))
-
-    # stage breakdown of one Ed25519 batch: eddsa.verify_batch itself, the
-    # device synchronised at each of its stage marks
-    e_breakdown, e_marked, acc = staged(ed_batch)
-    _check(bool(acc.all()), "Ed25519 stage breakdown: the batch does not "
-                            "accept")
-    _check(list(e_breakdown) == ["parse", "challenge", "decode", "comb",
-                                 "table", "windowed", "accept", "return"],
-           f"Ed25519 stage marks: {list(e_breakdown)}")
-    print("Ed25519 stage ms (host clock, device synchronised at each stage "
-          "mark of eddsa.verify_batch):", json.dumps(e_breakdown))
-    busy_ed = _profile(torch, ed_batch, "Ed25519")
+    # measurements of the Ed25519 batch (eddsa.verify_batch, bytes in,
+    # accept mask out)
+    ed25519, e_marked = time_batch(
+        lambda: eddsa.verify_batch("ed25519", e_pubs, e_msgs, e_sigs),
+        "Ed25519 verify", ["parse", "challenge", "decode", "comb", "table",
+                           "windowed", "accept", "return"],
+        lambda acc_: bool(acc_.all()))
+    e_per_batch = ed25519["launches_per_batch"]
 
     # kernels 8a, 8b and 7 at the Ed25519 path's shapes (N = 8192)
     XA8 = ExtPoint(*[t[:, :N].contiguous() for t in XA])
@@ -800,16 +780,274 @@ def main() -> int:
                               "launches_per_batch": e_per_batch[name], **m}
             row["max_abs_err"] = results[name]["max_abs_err"]
 
+    # 7. batch verification: kernels 5, 8c, 6 and 6-ed against their plain
+    # versions, then the three batch entry points at 8192 signatures ------
+    k1 = params.get_curve("SECP256K1")
+    k1w = H.WCurve(k1.fp_ctx.p_int, k1.a, k1.b, k1.gx, k1.gy, k1.q)
+    for nd in (0, JOINT_NDBL, 4):                   # the identity, P = +-Q lanes
+        cmp("point_dbln_add", point.point_dbln_add(c, PA, PB, nd),
+            point.point_dbln_add_plain(c, PA, PB, nd), POINT_N, f", n = {nd}")
+        cmp("ed_dbln_add", edpoint.ed_dbln_add(ec, XA, XB, nd),
+            edpoint.ed_dbln_add_plain(ec, XA, XB, nd), POINT_N, f", n = {nd}")
+    G4 = point.point_dbln_add(c, PA, PB, 4)
+    E4 = edpoint.ed_dbln_add(ec, XA, XB, 4)
+    for i in range(8):
+        _check(affine_of(G4, i) == H.ec_add(wc, H.ec_mul(wc, 16, A[i]), B[i]),
+               f"point_dbln_add lane {i} disagrees with the host oracle")
+        _check(ed_affine_of(E4, i) == H.ed_add(hc, H.ed_mul(hc, 16, EA[i]),
+                                                 EB[i]),
+               f"ed_dbln_add lane {i} disagrees with the host oracle")
+
+    def straus_scalars(order):
+        us, vs = rand_ints(POINT_N, order), rand_ints(POINT_N, order)
+        us[0] = vs[0] = us[1] = vs[2] = 0               # zero scalars
+        us[3], vs[3], us[4] = 1, 5, (1 << 37) + 3       # short ones
+        return us, vs, (nn.upload(nn.batch_to_limbs(us, 8), dev),
+                        nn.upload(nn.batch_to_limbs(vs, 8), dev))
+
+    su, sv, (sut, svt) = straus_scalars(q)
+    eu, evs, (eut, evt) = straus_scalars(eq)
+    straus_in = {"straus_mul": (c, PA, PB, sut, svt, PrjPoint),
+                 "straus_mul_ed": (ec, XA, XB, eut, evt, ExtPoint)}
+    straus_out = {}
+    for name, (cv, P1, P2, ut, vt, cls) in straus_in.items():
+        nbits = cv.scalar_bits()
+        tabs = (scalar_mul._build_mul_table(cv, P1),
+                scalar_mul._window_digits(ut, nbits),
+                scalar_mul._build_mul_table(cv, P2),
+                scalar_mul._window_digits(vt, nbits))
+        t0 = time.perf_counter()
+        want = megamul.straus_mul_plain(cv, *tabs, cls)
+        print(f"{name} plain at N={POINT_N}: "
+              f"{time.perf_counter() - t0:.1f} s")
+        straus_out[name] = megamul.straus_mul(cv, *tabs, cls)
+        cmp(name, straus_out[name], want, POINT_N)
+    for i in range(6):
+        _check(affine_of(straus_out["straus_mul"], i) == H.ec_add(
+            wc, H.ec_mul(wc, su[i], A[i]), H.ec_mul(wc, sv[i], B[i])),
+            f"straus_mul lane {i} disagrees with the host oracle")
+        _check(ed_affine_of(straus_out["straus_mul_ed"], i) == H.ed_add(
+            hc, H.ed_mul(hc, eu[i], EA[i]), H.ed_mul(hc, evs[i], EB[i])),
+            f"straus_mul_ed lane {i} disagrees with the host oracle")
+
+    # fixtures: 1024 unique signatures of each scheme from the host
+    # signers, tiled to the batch (Ed25519: the verify path's own)
+    t0 = time.perf_counter()
+
+    def w_fixture(cw, sign):
+        ds = [1 + v % (cw.q - 1) for v in rand_ints(UNIQUE, cw.q)]
+        pubs_ = [H.ec_base_mul(cw, d) for d in ds]
+        msgs_ = [rng.bytes(32) for _ in range(UNIQUE)]
+        sigs_ = [sign(cw, d, m_) for d, m_ in zip(ds, msgs_)]
+        return pubs_ * reps, msgs_ * reps, sigs_ * reps
+
+    f_pubs, f_msgs, f_sigs = w_fixture(wc, lambda cw, d, m_: H.ecfsdsa_sign_ref(
+        cw, d, 1 + rand_ints(1, cw.q - 1)[0], m_))
+    b_pubs, b_msgs, b_sigs = w_fixture(k1w, lambda cw, d, m_: H.bip0340_sign_ref(
+        cw, d, m_, rng.bytes(32)))
+    print(f"batch-verify fixtures: {UNIQUE} unique ECFSDSA and BIP0340 "
+          f"signatures from the host signers, tiled to {BATCH}, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    f_kb = K_.pubkey_batch_from_affine_ints(c, "ECFSDSA",
+                                            [P_[0] for P_ in f_pubs],
+                                            [P_[1] for P_ in f_pubs])
+    b_kb = K_.pubkey_batch_from_affine_ints(k1, "BIP0340",
+                                            [P_[0] for P_ in b_pubs],
+                                            [P_[1] for P_ in b_pubs])
+
+    def flip_last(sg):                  # lowest bit of s (big-endian)
+        return sg[:-1] + bytes([sg[-1] ^ 1])
+
+    def flip_s_ed(sg):                  # lowest bit of S (little-endian)
+        return sg[:32] + bytes([sg[32] ^ 1]) + sg[33:]
+
+    def evil(ms, i=4321):
+        ms = list(ms)
+        ms[i] = bytes([ms[i][0] ^ 0x5A]) + ms[i][1:]
+        return ms
+
+    def swap(ss, i, fn):
+        ss = list(ss)
+        ss[i] = fn(ss[i])
+        return ss
+
+    paths = {
+        "ecfsdsa_p256": lambda ms, ss: bv.ecfsdsa_verify_batch(f_kb, ms, ss),
+        "bip0340_secp256k1": lambda ms, ss: bv.bip0340_verify_batch(b_kb, ms,
+                                                                    ss),
+        "ed25519": lambda ms, ss: bv.eddsa_verify_batch("ed25519", e_pubs, ms,
+                                                        ss),
+    }
+    inputs = {"ecfsdsa_p256": (f_msgs, f_sigs, flip_last),
+              "bip0340_secp256k1": (b_msgs, b_sigs, flip_last),
+              "ed25519": (e_msgs, e_sigs, flip_s_ed)}
+
+    reset()
+    for name, fn in paths.items():
+        ms, ss, flip = inputs[name]
+        _check(fn(ms, ss) is True, f"{name}: the valid batch rejects")
+        _check(fn(ms, swap(ss, 777, flip)) is False,
+               f"{name}: a batch with one flipped signature bit accepts")
+        _check(fn(evil(ms), ss) is False,
+               f"{name}: a batch with one changed message accepts")
+    bv_counts = snapshot()
+    print("batch-verify path launches:", json.dumps(bv_counts))
+    for name in ["mont_mul", "mont_sqr", "point_add", "point_dbl", "ed_add",
+                 "ed_dbl", "straus_mul", "straus_mul_ed"]:
+        _check(bv_counts[name] >= 1,
+               f"kernel {name} was not launched on the batch-verify path")
+    print("batch-verify path: the valid 8192-signature batches accept; one "
+          "flipped signature bit or one changed message rejects each")
+
+    # the joint-table Straus (kernels 5 and 8c), its own run on both curves
+    reset()
+    joint = {name: scalar_mul.straus_double_mul_public(cv, ut, P1, vt, P2)
+             for name, (cv, P1, P2, ut, vt, _) in straus_in.items()}
+    torch.cuda.synchronize()
+    joint_counts = snapshot()
+    print("joint-table Straus launches:", json.dumps(joint_counts))
+    for name in ["point_add", "point_dbl", "point_dbln_add", "ed_add",
+                 "ed_dbl", "ed_dbln_add"]:
+        _check(joint_counts[name] >= 1,
+               f"kernel {name} was not launched on the joint-table Straus")
+    # ... gives the separate-table Straus's points (kernels 6 and 6-ed) on
+    # every lane
+    for name, (cv, P1, P2, ut, vt, cls) in straus_in.items():
+        w4 = scalar_mul.straus_double_mul_public_w4(cv, ut, P1, vt, P2)
+        aff = (shortw.to_affine_plain if cls is PrjPoint
+               else edwards.to_affine_plain)
+        for a_, b_ in zip(aff(cv, w4), aff(cv, joint[name])):
+            _check(torch.equal(a_, b_), f"{name}: straus_double_mul_public "
+                   "and straus_double_mul_public_w4 differ in affine form")
+    print(f"joint-table Straus equals the separate-table one on all {POINT_N} "
+          "lanes of both curves")
+
+    # the KAT rows as batches: ECFSDSA and BIP0340 (sig_kats.jsonl, public
+    # key X || Y || Z), the EDDSA25519 rows grouped by variant and context
+    with open(os.path.join(VEC, "sig_kats.jsonl")) as f:
+        skats = {(r["alg"], r["curve"]): r for r in map(json.loads, f)
+                 if r["hash"] == "SHA256"}
+    for alg, cv, fn in (("ECFSDSA", c, bv.ecfsdsa_verify_batch),
+                        ("BIP0340", k1, bv.bip0340_verify_batch)):
+        r = skats[(alg, "SECP256R1" if cv is c else "SECP256K1")]
+        pub = bytes.fromhex(r["pub"])
+        pc = cv.fp_ctx.p_int
+        X, Y, Z = [int.from_bytes(pub[32 * i:32 * (i + 1)], "big")
+                   for i in range(3)]
+        zi = pow(Z, -1, pc)
+        kb1 = K_.pubkey_batch_from_affine_ints(cv, alg, [X * zi % pc] * 2,
+                                               [Y * zi % pc] * 2)
+        msg, sig = r["msg"].encode(), bytes.fromhex(r["sig"])
+        _check(fn(kb1, [msg, msg], [sig, sig]) is True,
+               f"{alg} KAT row rejected as a batch")
+        _check(fn(kb1, [msg, msg + b"x"], [sig, sig]) is False,
+               f"{alg} KAT row with a changed message accepted")
+    groups = {}
+    for r in kats:
+        ctx_ = bytes.fromhex(r["adata_hex"]) if r["adata_hex"] else b""
+        pub, sig = H.ed25519_sign(hc, bytes.fromhex(r["priv"]),
+                                  bytes.fromhex(r["msg_hex"]),
+                                  variants[r["alg"]], ctx_)
+        _check(sig == bytes.fromhex(r["sig"]), f"{r['name']}: signer differs")
+        g = groups.setdefault((variants[r["alg"]], ctx_), ([], [], []))
+        for lst, v in zip(g, (pub, bytes.fromhex(r["msg_hex"]), sig)):
+            lst.append(v)
+    for (var, ctx_), (gp, gm, gs) in groups.items():
+        _check(bv.eddsa_verify_batch(var, gp, gm, gs, context=ctx_) is True,
+               f"EDDSA25519 KAT rows ({var}) rejected as a batch")
+        _check(bv.eddsa_verify_batch(var, gp, gm, swap(gs, 0, flip_s_ed),
+                                     context=ctx_) is False,
+               f"EDDSA25519 KAT rows ({var}) accepted with a flipped bit")
+    print(f"batch-verify KATs: the ECFSDSA SECP256R1 and BIP0340 SECP256K1 "
+          f"rows and the {len(kats)} EDDSA25519 rows ({len(groups)} batches, "
+          "one per variant and context) accept; corrupted, they reject")
+
+    # measurements of the three batch paths
+    bv_report = {}
+    bv_marked = {}
+    for name, fn in paths.items():
+        ms, ss, _ = inputs[name]
+        marks = ["keys"] if name == "bip0340_secp256k1" else []
+        marks += ["parse", "decode" if name == "ed25519" else "lift",
+                  "table", "straus", "reduce", "comb", "accept", "return"]
+        bv_report[name], bv_marked[name] = time_batch(
+            lambda fn=fn, ms=ms, ss=ss: fn(ms, ss), f"{name} batch verify",
+            marks, lambda ok_: ok_ is True)
+
+    # kernel 6 as built for a = 0 (secp256k1) on the BIP0340 batch's own
+    # tables and digits
+    btabs = bv_marked["bip0340_secp256k1"]["table"]
+    cmp("straus_mul", megamul.straus_mul(k1, *btabs, PrjPoint),
+        megamul.straus_mul_plain(k1, *btabs, PrjPoint), BATCH,
+        " on the BIP0340 batch's tables (secp256k1, a = 0)")
+
+    # kernels 6 and 6-ed at the batch path's shapes (N = 8192): kernel 6 on
+    # the ECFSDSA batch's tables and digits, 6-ed on the Ed25519 batch's;
+    # kernels 5 and 8c at the joint-table Straus's shapes
+    ftabs = bv_marked["ecfsdsa_p256"]["table"]
+    etabs = bv_marked["ed25519"]["table"]
+    joint_kern = {
+        "point_dbln_add": (
+            lambda: point.point_dbln_add(c, PA8, PB8, JOINT_NDBL),
+            lambda: point.point_dbln_add_plain(c, PA8, PB8, JOINT_NDBL),
+            100, 3, N * 288,
+            N * ((2 + 5 * JOINT_NDBL) * FSQR_SLOTS
+                 + (18 + 3 * JOINT_NDBL) * FMUL_SLOTS)),
+        "ed_dbln_add": (
+            lambda: edpoint.ed_dbln_add(ec, XA8, XB8, JOINT_NDBL),
+            lambda: edpoint.ed_dbln_add_plain(ec, XA8, XB8, JOINT_NDBL),
+            100, 3, N * 384,
+            N * (4 * JOINT_NDBL * FSQR_SLOTS
+                 + (4 * JOINT_NDBL + 9) * FMUL_SLOTS)),
+    }
+    bv_kern = {
+        "straus_mul": (
+            lambda: megamul.straus_mul(c, *ftabs, PrjPoint),
+            lambda: megamul.straus_mul_plain(c, *ftabs, PrjPoint), 10, 1,
+            N * (2 * 16 * 96 + 2 * 64 * 4 + 96),
+            N * 64 * (STRAUS_PER_WINDOW[0] * FSQR_SLOTS
+                      + STRAUS_PER_WINDOW[1] * FMUL_SLOTS)),
+        "straus_mul_ed": (
+            lambda: megamul.straus_mul(ec, *etabs, ExtPoint),
+            lambda: megamul.straus_mul_plain(ec, *etabs, ExtPoint), 10, 1,
+            N * (2 * 16 * 128 + 2 * 64 * 4 + 128),
+            N * 64 * (ED_STRAUS_PER_WINDOW[0] * FSQR_SLOTS
+                      + ED_STRAUS_PER_WINDOW[1] * FMUL_SLOTS)),
+    }
+    source.update({"point_dbln_add": "point.cu", "ed_dbln_add": "edpoint.cu",
+                   "straus_mul": "windowed.cu", "straus_mul_ed": "windowed.cu"})
+    replaces.update({
+        "point_dbln_add": "libecc_tpu/ops/pallas/point.py:507",
+        "ed_dbln_add": "libecc_tpu/ops/pallas/edpoint.py:140",
+        "straus_mul": "libecc_tpu/ops/pallas/megamul.py:224",
+        "straus_mul_ed": "libecc_tpu/ops/pallas/megamul.py:224",
+    })
+    per_batch_all = dict.fromkeys(bv_counts, 0)     # the three batches
+    for rep in bv_report.values():
+        for k_, v in rep["launches_per_batch"].items():
+            per_batch_all[k_] += v
+    time_kernels(bv_kern, bv_counts, per_batch_all, "batch verification")
+    time_kernels(joint_kern, joint_counts, joint_counts,
+                 "joint-table Straus")
+    for row in lines:                     # the older kernels on these paths
+        if row["path"] not in ("batch verification", "joint-table Straus"):
+            row["batch_verify_launches"] = bv_counts[row["name"]]
+            row["joint_straus_launches"] = joint_counts[row["name"]]
+
+    def rated(rep, key):
+        rep = dict(rep)
+        rep[key] = rep.pop("per_s")
+        rep["launches_per_batch"] = {k_: v for k_, v in
+                                     rep["launches_per_batch"].items() if v}
+        return {**rep, "card": smi}
+
+    print(json.dumps({"batch_verify": {
+        name: rated(rep, "signatures_per_s")
+        for name, rep in bv_report.items()}}))
     print(json.dumps({"verify": {
-        "batch": BATCH, "median_ms": round(med, 4),
-        "verifies_per_s": round(rate, 1),
-        "pipelined_verifies_per_s": round(piped, 1),
-        "busy_share": busy_p256, "peak_bytes": peak, "card": smi}}))
-    print(json.dumps({"verify_ed25519": {
-        "batch": BATCH, "median_ms": round(e_med, 4),
-        "verifies_per_s": round(e_rate, 1), "busy_share": busy_ed,
-        "launches_per_batch": e_per_batch, "stage_ms": e_breakdown,
-        "peak_bytes": e_peak, "card": smi}}))
+        **rated(p256, "verifies_per_s"),
+        "pipelined_verifies_per_s": round(piped, 1)}}))
+    print(json.dumps({"verify_ed25519": rated(ed25519, "verifies_per_s")}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

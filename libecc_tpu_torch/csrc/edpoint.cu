@@ -1,16 +1,20 @@
-// Kernels 8a and 8b: batched twisted-Edwards extended add and double.
+// Kernels 8a, 8b and 8c: batched twisted-Edwards extended add, double, and
+// the fused n doublings plus one add.
 //
 // Replace the TPU kernels libecc_tpu/ops/pallas/edpoint.py:_build_add
 // (:110 -> _pallas_call :92, pallas_call :99; public point_add :165, body
-// _add_body :49) and _build_dbl (:126; public point_dbl :171, body
-// _dbl_body :75), for a = -1 (Ed25519).
+// _add_body :49), _build_dbl (:126; public point_dbl :171, body
+// _dbl_body :75) and _build_dbln_add (:140; public point_dbln_add :177),
+// for a = -1 (Ed25519).
 //
 // Bound on the H100: integer-multiply issue. An add is 9 field products
 // for 12 x 4K bytes of traffic per lane (8 coordinates in, 4 out): at
 // K = 8 about 2,400 multiply-add slots for 384 bytes, well above the
 // card's slot-to-byte ratio; a double is 4 squares and 4 products for 7 x
 // 32 bytes. Design: as kernels 2 and 3, one thread per lane, the whole
-// formula in registers.
+// formula in registers. Kernel 8c keeps the point in registers across its
+// n doublings (4n squares and 4n + 9 products for 384 bytes; n is a
+// run-time argument); with n = 0 it is the add, T of P included.
 #include "edpoint.cuh"
 
 namespace ecc {
@@ -49,6 +53,28 @@ ed_dbl_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
   store_ext<K>(x3, y3, z3, t3, n, lane, ed_dbl_m1<K>(X, Y, Z, C));
 }
 
+template <int K>
+__global__ void __launch_bounds__(256)
+ed_dbln_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
+                   const uint32_t* __restrict__ y1,
+                   const uint32_t* __restrict__ z1,
+                   const uint32_t* __restrict__ t1,
+                   const uint32_t* __restrict__ x2,
+                   const uint32_t* __restrict__ y2,
+                   const uint32_t* __restrict__ z2,
+                   const uint32_t* __restrict__ t2,
+                   uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
+                   uint32_t* __restrict__ z3, uint32_t* __restrict__ t3,
+                   long long n, int ndbl) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  ExtPt<K> acc = load_ext<K>(x1, y1, z1, t1, n, lane);
+#pragma unroll 1
+  for (int i = 0; i < ndbl; ++i) acc = ed_dbl_m1<K>(acc.x, acc.y, acc.z, C);
+  const ExtPt<K> T = load_ext<K>(x2, y2, z2, t2, n, lane);
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add_m1<K>(acc, T, C));
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long long n) {
@@ -80,6 +106,20 @@ int ed_dbl_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
     ecc::ed_dbl_kernel<8><<<ecc::blocks_for(n), ecc::kThreads, 0,
                             (cudaStream_t)stream>>>(
         *C, in[0], in[1], in[2], out[0], out[1], out[2], out[3], n);
+  return (int)cudaGetLastError();
+}
+
+// in: x1, y1, z1, t1 (P), x2, y2, z2, t2 (T); out: 2^ndbl * P + T.
+int ed_dbln_add_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
+                   uint32_t* const* out, long long n, int ndbl,
+                   void* stream) {
+  if (C->a_kind != ecc::ED_A_M1 || ndbl < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0)
+    ecc::ed_dbln_add_kernel<8><<<ecc::blocks_for(n), ecc::kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+        *C, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], out[0],
+        out[1], out[2], out[3], n, ndbl);
   return (int)cudaGetLastError();
 }
 

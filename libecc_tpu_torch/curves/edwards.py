@@ -5,8 +5,9 @@ x = X/Z, y = Y/Z and T = XY/Z, each coordinate an ``int32[K, N]``
 canonical Montgomery-form field element; the identity is (0 : 1 : 1 : 0).
 The curve is a x^2 + y^2 = 1 + d x^2 y^2. ``point_add`` (the HWCD unified
 extended add) and ``point_dbl`` (dbl-2008-hwcd) run as kernels 8a and 8b
-(``ops/cuda/edpoint.py``) for tensors on the card; their plain versions
-live beside the kernels.
+(``ops/cuda/edpoint.py``) for tensors on the card, and ``pdbln_add`` (n
+doublings and one add, the Straus scan step) as kernel 8c; their plain
+versions live beside the kernels.
 """
 
 from __future__ import annotations
@@ -82,6 +83,10 @@ class EdwardsCurve:
 
     def pdbl(self, P):
         return point_dbl(self, P)
+
+    def pdbln_add(self, P, Q, ndbl: int):
+        """2^ndbl * P + Q; kernel 8c on the card."""
+        return kedpoint.ed_dbln_add(self, P, Q, ndbl)
 
     def pinf(self, like=None, batch_shape=(), device=None):
         return self.identity(like=like, batch_shape=batch_shape,

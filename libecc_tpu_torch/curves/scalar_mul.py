@@ -14,10 +14,14 @@ Port of the public paths of ``libecc_tpu/curves/scalar_mul.py``:
   counterpart, so the width is not a parameter).
 * ``fixed_base_double_mul_public``: u*G + v*Q for ECDSA and EdDSA
   verification.
+* ``straus_double_mul_public_w4``: u*P + v*Q with one [0..15] table per
+  base and the whole window loop as kernel 6 (batch verification).
+* ``straus_double_mul_public``: u*P + v*Q with one joint 2-bit table
+  iP + jQ and nbits/2 steps of ``pdbln_add`` (kernel 5 or 8c).
 
 Each works on both point classes: short-Weierstrass projective points
-(three coordinates; kernels 2, 3 and 4) and twisted-Edwards extended
-points (four; kernels 8a, 8b and 7).
+(three coordinates; kernels 2, 3, 4, 5 and 6) and twisted-Edwards extended
+points (four; kernels 8a, 8b, 7, 8c and 6-ed).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ..ref import hostref
 from .edwards import EdwardsCurve
 
 COMB_W = 8              # comb window width: 2^8-entry tables, nbits/8 adds
+JOINT_W = 2             # joint Straus window: a 2^(2w) = 16-entry table
 
 # (curve name, p, w, nbits) -> (np.uint32[nwin*2^w, ncoord, K], nwin)
 _COMB_CACHE: dict = {}
@@ -40,17 +45,10 @@ _COMB_DEV: dict = {}
 
 
 def _comb_rows_shortw(c, nwin: int, w: int):
+    """The host oracle's affine comb, projective with Z = 1."""
     ref = hostref.WCurve(c.fp_ctx.p_int, c.a, c.b, c.gx, c.gy, c.q, c.h)
-    base = (c.gx, c.gy)
-    rows = []
-    for _ in range(nwin):
-        rows.append((0, 1, 0))
-        acc = None
-        for _d in range(1, 1 << w):
-            acc = hostref.ec_add(ref, acc, base)
-            rows.append((0, 1, 0) if acc is None else (acc[0], acc[1], 1))
-        base = hostref.ec_mul(ref, 1 << w, base)
-    return rows
+    return [(0, 1, 0) if P is None else (P[0], P[1], 1)
+            for row in hostref.ec_base_comb(ref, nwin, w) for P in row]
 
 
 def _comb_rows_edwards(c, nwin: int, w: int):
@@ -134,12 +132,11 @@ def _window_digits(m, nbits: int):
         torch.int32).contiguous()
 
 
-def _build_mul_table(c, P):
-    """[0..2^WINDOW-1]P stacked as int32[2^WINDOW, ncoord, K, N]: even
-    entries by doubling (kernel 3 or 8b), odd entries by adding P (kernel 2
-    or 8a)."""
+def _build_mul_table(c, P, size: int = 1 << megamul.WINDOW):
+    """[0..size-1]P stacked as int32[size, ncoord, K, N]: even entries by
+    doubling (kernel 3 or 8b), odd entries by adding P (kernel 2 or 8a)."""
     table = [c.pinf(like=P), P]
-    for i in range(2, 1 << megamul.WINDOW):
+    for i in range(2, size):
         table.append(c.pdbl(table[i // 2]) if i % 2 == 0
                      else c.padd(table[i - 1], P))
     return torch.stack([torch.stack(list(t)) for t in table])
@@ -170,3 +167,51 @@ def fixed_base_double_mul_public(c, u, v, Q, nbits: int | None = None):
     vQ = megamul.windowed_mul(c, table, digs, type(Q))
     stages.mark("windowed", vQ)
     return c.padd(uG, vQ)
+
+
+def straus_double_mul_public_w4(c, u, P, v, Q, nbits: int | None = None):
+    """u*P + v*Q for PUBLIC scalars with SEPARATE [0..15] tables per base
+    and 4-bit windows: per window 4 doublings, then P's entry, then Q's
+    entry; all windows in one launch of kernel 6 (6-ed, Edwards) on the
+    card. The digits cover the full nbits (default the scalars' width),
+    leading zero windows included: they add identities, which changes the
+    projective values the reference computes."""
+    if nbits is None:
+        nbits = c.scalar_bits()
+    ptab = _build_mul_table(c, P)
+    qtab = _build_mul_table(c, Q)
+    du = _window_digits(u, nbits)
+    dv = _window_digits(v, nbits)
+    stages.mark("table", ptab, du, qtab, dv)
+    return megamul.straus_mul(c, ptab, du, qtab, dv, type(P))
+
+
+def straus_double_mul_public(c, u, P, v, Q, nbits: int | None = None):
+    """u*P + v*Q for PUBLIC scalars, interleaved (Straus-Shamir) over ONE
+    joint per-lane table T[i * 4 + j] = iP + jQ (JOINT_W = 2; kernels 2 and
+    3, or 8a and 8b): nbits/2 steps of acc = 4*acc + T[d_u * 4 + d_v], each
+    one ``pdbln_add`` (kernel 5, or 8c on an Edwards curve)."""
+    if nbits is None:
+        nbits = c.scalar_bits()
+    cls = type(P)
+    tw = 1 << JOINT_W
+    ptab = _build_mul_table(c, P, tw)
+    qtab = _build_mul_table(c, Q, tw)
+    rows = []
+    for i in range(tw):
+        for j in range(tw):
+            if i == 0:
+                rows.append(qtab[j])
+            elif j == 0:
+                rows.append(ptab[i])
+            else:
+                rows.append(torch.stack(list(c.padd(cls(*ptab[i]),
+                                                    cls(*qtab[j])))))
+    table = torch.stack(rows)
+    idx = (_digits(u, nbits, JOINT_W, msw_first=True) * tw
+           + _digits(v, nbits, JOINT_W, msw_first=True))
+    acc = c.pinf(like=P)
+    for wi in range(idx.shape[0]):
+        acc = c.pdbln_add(acc, megamul.gather_entry(table, idx[wi], cls),
+                          JOINT_W)
+    return acc

@@ -4,8 +4,9 @@ Port of ``libecc_tpu/curves/shortw.py``. Points are homogeneous projective
 (X : Y : Z), each coordinate an ``int32[K, N]`` canonical Montgomery-form
 field element; the identity is (0 : 1 : 0). ``point_add`` and
 ``point_dbl`` are the Renes-Costello-Batina complete formulas and run as
-kernels 2 and 3 (``ops/cuda/point.py``) for tensors on the card; their
-plain versions live beside the kernels.
+kernels 2 and 3 (``ops/cuda/point.py``) for tensors on the card, and
+``point_dbln_add`` (2^n*P + Q, the Straus scan step of public-scalar
+paths) as kernel 5; their plain versions live beside the kernels.
 """
 
 from __future__ import annotations
@@ -75,6 +76,9 @@ class ShortWCurve:
     def pdbl(self, P):
         return point_dbl(self, P)
 
+    def pdbln_add(self, P, Q, ndbl: int):
+        return point_dbln_add(self, P, Q, ndbl)
+
     def pinf(self, like=None, batch_shape=(), device=None):
         return self.infinity(like=like, batch_shape=batch_shape,
                              device=device)
@@ -96,6 +100,36 @@ def point_add(c: ShortWCurve, P: PrjPoint, Q: PrjPoint) -> PrjPoint:
 def point_dbl(c: ShortWCurve, P: PrjPoint) -> PrjPoint:
     """Complete doubling, any a (RCB 2015 Alg. 3). Kernel 3 on the card."""
     return kpoint.point_dbl(c, P)
+
+
+class _FpField(kpoint.PlainField):
+    """The formula bodies' field operations through ``fp.mul`` and
+    ``fp.sqr``: kernel 1 for tensors on the card, its plain version on the
+    CPU (one launch per grouped layer)."""
+
+    def muls(self, *pairs):
+        return self._grouped(lambda a, b: fp.mul(a, b, self.ctx),
+                             *zip(*pairs))
+
+    def sqrs(self, *items):
+        return self._grouped(lambda a: fp.sqr(a, self.ctx), items)
+
+
+def point_dbln_jac(c: ShortWCurve, P: PrjPoint, ndbl: int) -> PrjPoint:
+    """2^ndbl * P for PUBLIC points through a Jacobian doubling block:
+    homogeneous -> Jacobian (X*Z, Y*Z^2, Z) with ONE select for the
+    identity (Z = 0 lanes take (1, 1, 0), whose doubling orbit is itself),
+    ndbl dbl-2001-b doublings, Jacobian -> homogeneous (X*Z : Y : Z^3).
+    The formulas run on kernel 1; the fused form is kernel 5."""
+    F = _FpField(c, P.x)
+    return PrjPoint(*kpoint.dbln_jac_body(F, kpoint.a_kind(c), *P, ndbl))
+
+
+def point_dbln_add(c: ShortWCurve, P: PrjPoint, Q: PrjPoint,
+                   ndbl: int) -> PrjPoint:
+    """2^ndbl * P + Q for PUBLIC points (the Jacobian block, then one
+    complete add): the Straus scan step. Kernel 5 on the card."""
+    return kpoint.point_dbln_add(c, P, Q, ndbl)
 
 
 def to_affine_plain(c: ShortWCurve, P: PrjPoint):
@@ -123,3 +157,15 @@ def on_curve_mask(c: ShortWCurve, P: PrjPoint):
     rhs = fp.add(rhs, fp.mul(A, fp.mul(X, z2, ctx), ctx), ctx)
     rhs = fp.add(rhs, fp.mul(B, fp.mul(z2, Z, ctx), ctx), ctx)
     return fp.eq_mask(lhs, rhs, ctx)
+
+
+def y_from_x(c: ShortWCurve, x):
+    """Candidate y for affine x (Montgomery form): sqrt(x^3 + a x + b).
+    Returns (y, exists mask); y is garbage where the mask is False."""
+    ctx = c.fp_ctx
+    A = ctx.const(c.a, like=x)
+    B = ctx.const(c.b, like=x)
+    rhs = fp.mul(fp.sqr(x, ctx), x, ctx)
+    rhs = fp.add(rhs, fp.mul(A, x, ctx), ctx)
+    rhs = fp.add(rhs, B, ctx)
+    return fp.sqrt(rhs, ctx)

@@ -1,14 +1,14 @@
-"""Kernels 8a and 8b: twisted-Edwards extended add and double
-(``csrc/edpoint.cu``).
+"""Kernels 8a, 8b and 8c: twisted-Edwards extended add, double and the
+fused n doublings plus one add (``csrc/edpoint.cu``).
 
 Counterparts of ``libecc_tpu/ops/pallas/edpoint.py:point_add`` /
-``point_dbl``. The plain versions below evaluate the reference's bodies
-(``_add_body`` :49, ``_dbl_body`` :75) operation for operation on plain
-tensor field operations, for every a (add-2008-hwcd-3 for a = -1,
-add-2008-hwcd otherwise; dbl-2008-hwcd). The kernels cover a = -1, the
-only K = 8 Edwards curve (Ed25519); on the card any other a raises.
-Wrappers launch the kernels for tensors on the card and take the plain
-versions only for tensors on the CPU.
+``point_dbl`` / ``point_dbln_add``. The plain versions below evaluate the
+reference's bodies (``_add_body`` :49, ``_dbl_body`` :75) operation for
+operation on plain tensor field operations, for every a (add-2008-hwcd-3
+for a = -1, add-2008-hwcd otherwise; dbl-2008-hwcd). The kernels cover
+a = -1, the only K = 8 Edwards curve (Ed25519); on the card any other a
+raises. Wrappers launch the kernels for tensors on the card and take the
+plain versions only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from . import build
 from .mont import FieldCtx8, field_struct, _stream
 from .point import PlainField, _check_point, ptr_array
 
-launches = {"ed_add": 0, "ed_dbl": 0}
+launches = {"ed_add": 0, "ed_dbl": 0, "ed_dbln_add": 0}
 
 A_M1 = 1                # ecc::ED_A_M1; the kernels refuse any other a
 
@@ -65,6 +65,9 @@ def _lib():
         for fn in (lib.ed_add_k8, lib.ed_dbl_k8):
             fn.argtypes = [ctypes.POINTER(EdCurveCtx8), vp, vp, ll, vp]
             fn.restype = ctypes.c_int
+        lib.ed_dbln_add_k8.argtypes = [ctypes.POINTER(EdCurveCtx8), vp, vp,
+                                       ll, ctypes.c_int, vp]
+        lib.ed_dbln_add_k8.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -127,6 +130,16 @@ def ed_dbl_plain(curve, P):
     return type(P)(*dbl_body(EdPlainField(curve, P.x), curve, *P[:3]))
 
 
+def ed_dbln_add_plain(curve, P, Q, ndbl: int):
+    """Plain version of kernel 8c: ndbl doublings of P, then + Q (with
+    ndbl = 0, the add of P, T included)."""
+    fl = EdPlainField(curve, P.x)
+    acc = tuple(P)
+    for _ in range(ndbl):
+        acc = dbl_body(fl, curve, *acc[:3])
+    return type(P)(*add_body(fl, curve, *acc, *Q))
+
+
 # -- kernel wrappers -------------------------------------------------------
 
 def ed_add(curve, P, Q):
@@ -159,4 +172,24 @@ def ed_dbl(curve, P):
                           P.x.shape[1], _stream())
     build.check(rc, "ed_dbl")
     launches["ed_dbl"] += 1
+    return type(P)(*out)
+
+
+def ed_dbln_add(curve, P, Q, ndbl: int):
+    """2^ndbl * P + Q; kernel 8c for tensors on the card."""
+    if P.x.device.type == "cpu":
+        return ed_dbln_add_plain(curve, P, Q, ndbl)
+    check_curve(curve, "ed_dbln_add")
+    _check_point(curve, P, "ed_dbln_add P")
+    _check_point(curve, Q, "ed_dbln_add Q")
+    if Q.x.shape != P.x.shape:
+        raise ValueError("ed_dbln_add: P and Q differ in shape")
+    if ndbl < 0:
+        raise ValueError("ed_dbln_add: ndbl must be >= 0")
+    out = [torch.empty_like(P.x) for _ in range(4)]
+    rc = _lib().ed_dbln_add_k8(ctypes.byref(curve_struct(curve)),
+                               ptr_array([*P, *Q]), ptr_array(out),
+                               P.x.shape[1], ndbl, _stream())
+    build.check(rc, "ed_dbln_add")
+    launches["ed_dbln_add"] += 1
     return type(P)(*out)

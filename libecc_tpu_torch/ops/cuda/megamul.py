@@ -1,23 +1,25 @@
-"""Kernels 4 and 7: the whole fixed-window scalar multiply
-(``csrc/windowed.cu``).
+"""Kernels 4, 6, 7 and 6-ed: the whole fixed-window scalar multiply and the
+whole Straus dual multiply (``csrc/windowed.cu``).
 
-Counterpart of ``libecc_tpu/ops/pallas/megamul.py:windowed_mul`` with
-npairs 1, in its two models. The model follows the point class: three
-coordinates is short Weierstrass (kernel 4, model ``w``), four is twisted
-Edwards (kernel 7, model ``ed``).
+Counterpart of ``libecc_tpu/ops/pallas/megamul.py``: ``windowed_mul``
+(npairs 1) and ``straus_mul`` (npairs 2), each in two models. The model
+follows the point class: three coordinates is short Weierstrass (kernels 4
+and 6, model ``w``), four is twisted Edwards (kernels 7 and 6-ed, model
+``ed``).
 
 * Short Weierstrass, per window, most significant first: the Jacobian
   doubling block (to_jac with the identity select, w dbl-2001-b
-  doublings, from_jac), then the complete add of the lane's table entry.
+  doublings, from_jac), then one complete add of the lane's entry of each
+  table, in the order the tables are given.
 * Twisted Edwards (a = -1): the accumulator starts at (0 : 1 : 1 : 0);
   per window w dbl-2008-hwcd doublings, then one extended add of the
-  lane's entry. The formulas are complete, so there is no identity select.
+  lane's entry of each table. The formulas are complete, so there is no
+  identity select.
 
 The kernels read the entry by index, so they serve PUBLIC scalars only
 (see the note in the CUDA source). The TPU kernel's VMEM sizing and its
 w -> w-1 fallback have no counterpart: the kernels are built for K = 8 at
-w = 4, and ``windowed_mul`` raises on any other shape for a tensor on the
-card.
+w = 4, and the wrappers raise on any other shape for a tensor on the card.
 """
 
 from __future__ import annotations
@@ -27,14 +29,20 @@ import ctypes
 import torch
 
 from . import build, edpoint
-from .mont import _stream, _ptr
+from .mont import _stream
 from .point import (PlainField, _add_body, a_kind, curve_struct,
-                    from_jac_body, jdbl_body, ptr_array, to_jac_body,
-                    CurveCtx8)
+                    dbln_jac_body, ptr_array, CurveCtx8)
 
-launches = {"windowed_mul": 0, "windowed_mul_ed": 0}
+launches = {"windowed_mul": 0, "windowed_mul_ed": 0, "straus_mul": 0,
+            "straus_mul_ed": 0}
 
 WINDOW = 4
+
+# (Edwards, number of pairs) -> kernel name and C entry point
+_KERNELS = {(False, 1): ("windowed_mul", "windowed_mul_k8_w4"),
+            (True, 1): ("windowed_mul_ed", "windowed_mul_ed_k8_w4"),
+            (False, 2): ("straus_mul", "straus_mul_k8_w4"),
+            (True, 2): ("straus_mul_ed", "straus_mul_ed_k8_w4")}
 
 
 def supported(curve, w: int) -> bool:
@@ -45,12 +53,11 @@ def _lib():
     lib = build.library("windowed")
     if not getattr(lib, "_typed", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.windowed_mul_k8_w4.argtypes = [
-            ctypes.POINTER(CurveCtx8), vp, ctypes.c_int, vp, vp, ll, vp]
-        lib.windowed_mul_ed_k8_w4.argtypes = [
-            ctypes.POINTER(edpoint.EdCurveCtx8), vp, ctypes.c_int, vp, vp,
-            ll, vp]
-        for fn in (lib.windowed_mul_k8_w4, lib.windowed_mul_ed_k8_w4):
+        for (ed, _), (_, cname) in _KERNELS.items():
+            ctx = edpoint.EdCurveCtx8 if ed else CurveCtx8
+            fn = getattr(lib, cname)
+            fn.argtypes = [ctypes.POINTER(ctx), vp, ctypes.c_int, vp, vp, ll,
+                           vp]
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -60,33 +67,83 @@ def _is_edwards(point_cls) -> bool:
     return len(point_cls._fields) == 4
 
 
-def windowed_mul_plain(curve, table: torch.Tensor, digs: torch.Tensor,
-                       point_cls):
-    """Plain version of kernels 4 and 7. table: int32[2^w, ncoord, K, N]
-    with entry d = d*P; digs: int32[nwin, N] MSW-first w-bit digits."""
-    w = (table.shape[0] - 1).bit_length()
+def gather_entry(table: torch.Tensor, idx: torch.Tensor, point_cls):
+    """Lane i's entry idx[i] of a per-lane table int32[T, ncoord, K, N]."""
+    d = idx.to(torch.int64).view(1, 1, 1, -1).expand((1,) + table.shape[1:])
+    return point_cls(*torch.gather(table, 0, d)[0])
+
+
+def _mul_plain(curve, tables, digits, point_cls):
+    """Plain version of kernels 4, 6, 7 and 6-ed: per window, w doublings,
+    then one add of each table's entry under its digits, in order."""
+    w = (tables[0].shape[0] - 1).bit_length()
     ed = _is_edwards(point_cls)
     if ed:
-        F = edpoint.EdPlainField(curve, table[0, 0])
+        F = edpoint.EdPlainField(curve, tables[0][0, 0])
     else:
         kind = a_kind(curve)
-        F = PlainField(curve, table[0, 0])
-    acc = curve.pinf(like=point_cls(*table[0]))
-    idx_shape = (1,) + table.shape[1:]
-    for wi in range(digs.shape[0]):
+        F = PlainField(curve, tables[0][0, 0])
+    acc = curve.pinf(like=point_cls(*tables[0][0]))
+    for wi in range(digits[0].shape[0]):
         if ed:
             for _ in range(w):
                 acc = edpoint.dbl_body(F, curve, *acc[:3])
         else:
-            Xj, Yj, Zj = to_jac_body(F, *acc)
-            for _ in range(w):
-                Xj, Yj, Zj = jdbl_body(F, kind, Xj, Yj, Zj)
-            acc = from_jac_body(F, Xj, Yj, Zj)
-        d = digs[wi].to(torch.int64).view(1, 1, 1, -1).expand(idx_shape)
-        T = torch.gather(table, 0, d)[0]
-        acc = (edpoint.add_body(F, curve, *acc, *T) if ed
-               else _add_body(F, kind, *acc, *T))
+            acc = dbln_jac_body(F, kind, *acc, w)
+        for table, digs in zip(tables, digits):
+            T = gather_entry(table, digs[wi], point_cls)
+            acc = (edpoint.add_body(F, curve, *acc, *T) if ed
+                   else _add_body(F, kind, *acc, *T))
     return point_cls(*acc)
+
+
+def windowed_mul_plain(curve, table: torch.Tensor, digs: torch.Tensor,
+                       point_cls):
+    """Plain version of kernels 4 and 7. table: int32[2^w, ncoord, K, N]
+    with entry d = d*P; digs: int32[nwin, N] MSW-first w-bit digits."""
+    return _mul_plain(curve, (table,), (digs,), point_cls)
+
+
+def straus_mul_plain(curve, ptab, du, qtab, dv, point_cls):
+    """Plain version of kernels 6 and 6-ed: u*P + v*Q from P's table with
+    u's digits and Q's table with v's digits (per window P's entry is
+    added first)."""
+    return _mul_plain(curve, (ptab, qtab), (du, dv), point_cls)
+
+
+def _launch(curve, tables, digits, point_cls):
+    ed = _is_edwards(point_cls)
+    name, cname = _KERNELS[(ed, len(tables))]
+    if ed:
+        edpoint.check_curve(curve, name)
+    k = curve.fp_ctx.k
+    w = (tables[0].shape[0] - 1).bit_length()
+    if not supported(curve, w):
+        raise ValueError(f"{name}: the CUDA kernel takes K = 8 and "
+                         f"w = {WINDOW}, not K = {k}, w = {w}")
+    n = tables[0].shape[-1]
+    ncoord = len(point_cls._fields)
+    nwin = digits[0].shape[0]
+    for table, digs in zip(tables, digits):
+        if (table.dtype != torch.int32 or not table.is_contiguous()
+                or tuple(table.shape) != (1 << WINDOW, ncoord, k, n)
+                or table.device != tables[0].device):
+            raise ValueError(f"{name}: tables must be contiguous int32 "
+                             f"[16, {ncoord}, {k}, N] tensors on one device")
+        if (digs.dtype != torch.int32 or not digs.is_contiguous()
+                or tuple(digs.shape) != (nwin, n)
+                or digs.device != table.device):
+            raise ValueError(f"{name}: digits must be contiguous int32 "
+                             "[nwin, N] tensors on the tables' device")
+    out = [torch.empty((k, n), dtype=torch.int32, device=tables[0].device)
+           for _ in range(ncoord)]
+    cs = edpoint.curve_struct(curve) if ed else curve_struct(curve)
+    rc = getattr(_lib(), cname)(ctypes.byref(cs), ptr_array(digits), nwin,
+                                ptr_array(tables), ptr_array(out), n,
+                                _stream())
+    build.check(rc, name)
+    launches[name] += 1
+    return point_cls(*out)
 
 
 def windowed_mul(curve, table: torch.Tensor, digs: torch.Tensor, point_cls):
@@ -94,37 +151,13 @@ def windowed_mul(curve, table: torch.Tensor, digs: torch.Tensor, point_cls):
     or kernel 7 (four) on the card."""
     if table.device.type == "cpu":
         return windowed_mul_plain(curve, table, digs, point_cls)
-    ed = _is_edwards(point_cls)
-    if ed:
-        edpoint.check_curve(curve, "windowed_mul")
-    k = curve.fp_ctx.k
-    w = (table.shape[0] - 1).bit_length()
-    if not supported(curve, w):
-        raise ValueError(f"windowed_mul: the CUDA kernel takes K = 8 and "
-                         f"w = {WINDOW}, not K = {k}, w = {w}")
-    n = table.shape[-1]
-    ncoord = len(point_cls._fields)
-    if (table.dtype != torch.int32 or not table.is_contiguous()
-            or tuple(table.shape) != (1 << WINDOW, ncoord, k, n)):
-        raise ValueError("windowed_mul: table must be a contiguous int32 "
-                         f"[16, {ncoord}, {k}, N] tensor")
-    if (digs.dtype != torch.int32 or not digs.is_contiguous()
-            or digs.dim() != 2 or digs.shape[1] != n
-            or digs.device != table.device):
-        raise ValueError("windowed_mul: digits must be a contiguous int32 "
-                         "[nwin, N] tensor on the table's device")
-    out = [torch.empty((k, n), dtype=torch.int32, device=table.device)
-           for _ in range(ncoord)]
-    if ed:
-        rc = _lib().windowed_mul_ed_k8_w4(
-            ctypes.byref(edpoint.curve_struct(curve)), _ptr(digs),
-            digs.shape[0], _ptr(table), ptr_array(out), n, _stream())
-        name = "windowed_mul_ed"
-    else:
-        rc = _lib().windowed_mul_k8_w4(
-            ctypes.byref(curve_struct(curve)), _ptr(digs), digs.shape[0],
-            _ptr(table), ptr_array(out), n, _stream())
-        name = "windowed_mul"
-    build.check(rc, name)
-    launches[name] += 1
-    return point_cls(*out)
+    return _launch(curve, (table,), (digs,), point_cls)
+
+
+def straus_mul(curve, ptab, du, qtab, dv, point_cls):
+    """Whole Straus u*P + v*Q for public scalars with separate per-base
+    tables; kernel 6 (three coordinates) or kernel 6-ed (four) on the
+    card."""
+    if ptab.device.type == "cpu":
+        return straus_mul_plain(curve, ptab, du, qtab, dv, point_cls)
+    return _launch(curve, (ptab, qtab), (du, dv), point_cls)

@@ -1,12 +1,14 @@
-"""Kernels 2 and 3: complete point addition and doubling (``csrc/point.cu``).
+"""Kernels 2, 3 and 5: complete point addition, doubling and the fused
+2^n*P + T step (``csrc/point.cu``).
 
-Counterparts of ``libecc_tpu/ops/pallas/point.py:point_add`` / ``point_dbl``.
-The plain versions below evaluate the same formulas operation for
-operation (``_add_body`` / ``_dbl_body``, mirroring the reference's bodies
-at point.py:311-421) on plain tensor field operations; the Jacobian
-window block used by kernel 4's plain version is here too, as in the
-reference. Wrappers launch the kernels for tensors on the card and take
-the plain versions only for tensors on the CPU.
+Counterparts of ``libecc_tpu/ops/pallas/point.py:point_add`` /
+``point_dbl`` / ``point_dbln_add``. The plain versions below evaluate the
+same formulas operation for operation (``_add_body`` / ``_dbl_body``,
+mirroring the reference's bodies at point.py:311-421, and the Jacobian
+window block ``dbln_jac_body``, its ``_dbln_jac_block`` :300, which
+kernels 4, 5 and 6 share) on plain tensor field operations. Wrappers
+launch the kernels for tensors on the card and take the plain versions
+only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from ...nn import core as nn
 from . import build
 from .mont import FieldCtx8, check_operand, field_struct, _stream
 
-launches = {"point_add": 0, "point_dbl": 0}
+launches = {"point_add": 0, "point_dbl": 0, "point_dbln_add": 0}
 
 A_GENERIC, A_M3, A_ZERO = 0, 1, 2
 
@@ -63,6 +65,9 @@ def _lib():
         for fn in (lib.point_add_k8, lib.point_dbl_k8):
             fn.argtypes = [ctypes.POINTER(CurveCtx8), vp, vp, ll, vp]
             fn.restype = ctypes.c_int
+        lib.point_dbln_add_k8.argtypes = [ctypes.POINTER(CurveCtx8), vp, vp,
+                                          ll, ctypes.c_int, vp]
+        lib.point_dbln_add_k8.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -229,6 +234,15 @@ def from_jac_body(F: PlainField, X, Y, Z):
     return xz, Y, z3
 
 
+def dbln_jac_body(F: PlainField, kind: int, X, Y, Z, ndbl: int):
+    """2^ndbl * (X : Y : Z) for public points: to_jac with the identity
+    select, ndbl Jacobian doublings, from_jac."""
+    J = to_jac_body(F, X, Y, Z)
+    for _ in range(ndbl):
+        J = jdbl_body(F, kind, *J)
+    return from_jac_body(F, *J)
+
+
 def point_add_plain(curve, P, Q):
     """Plain version of kernel 2."""
     F = PlainField(curve, P.x)
@@ -239,6 +253,14 @@ def point_dbl_plain(curve, P):
     """Plain version of kernel 3."""
     F = PlainField(curve, P.x)
     return type(P)(*_dbl_body(F, a_kind(curve), *P))
+
+
+def point_dbln_add_plain(curve, P, Q, ndbl: int):
+    """Plain version of kernel 5: 2^ndbl * P + Q."""
+    F = PlainField(curve, P.x)
+    kind = a_kind(curve)
+    return type(P)(*_add_body(F, kind, *dbln_jac_body(F, kind, *P, ndbl),
+                              *Q))
 
 
 # -- kernel wrappers -------------------------------------------------------
@@ -280,3 +302,21 @@ def point_dbl(curve, P):
     launches["point_dbl"] += 1
     return type(P)(*out)
 
+
+def point_dbln_add(curve, P, Q, ndbl: int):
+    """2^ndbl * P + Q for public points; kernel 5 for tensors on the card."""
+    if P.x.device.type == "cpu":
+        return point_dbln_add_plain(curve, P, Q, ndbl)
+    _check_point(curve, P, "point_dbln_add P")
+    _check_point(curve, Q, "point_dbln_add Q")
+    if Q.x.shape != P.x.shape:
+        raise ValueError("point_dbln_add: P and Q differ in shape")
+    if ndbl < 0:
+        raise ValueError("point_dbln_add: ndbl must be >= 0")
+    out = [torch.empty_like(P.x) for _ in range(3)]
+    rc = _lib().point_dbln_add_k8(ctypes.byref(curve_struct(curve)),
+                                  ptr_array([*P, *Q]), ptr_array(out),
+                                  P.x.shape[1], ndbl, _stream())
+    build.check(rc, "point_dbln_add")
+    launches["point_dbln_add"] += 1
+    return type(P)(*out)

@@ -4,7 +4,8 @@ Port of ``libecc_tpu/ref/hostref.py`` (its short-Weierstrass and twisted
 Edwards parts): independent textbook big-int EC math over Python ints,
 used to build the comb tables and the test and bench fixtures, and as the
 differential oracle for the batched kernels. It also holds an RFC 8032
-Ed25519 signer (pure, ctx and ph) for fixtures on machines without the
+Ed25519 signer (pure, ctx and ph), an EC-FSDSA signer and a BIP-340 signer
+(nonce and auxiliary bytes injected) for fixtures on machines without the
 JAX package. Nothing here runs on the device.
 """
 
@@ -69,6 +70,81 @@ def ec_neg(c: WCurve, P):
     return (P[0], (-P[1]) % c.p)
 
 
+# -- fixed-base multiplication by a comb (fixtures) ----------------------------
+# An 8-bit comb of affine multiples of G and Jacobian accumulation: one
+# inversion per product instead of one per group operation, so a fixture
+# of thousands of signatures takes seconds. The same comb is the device
+# comb table of curves/scalar_mul.py.
+
+_W_COMBS: dict = {}
+
+
+def ec_base_comb(c: WCurve, nwin: int, w: int):
+    """The w-bit comb of G, affine: row j holds d * 2^(w j) * G for
+    d = 0..2^w - 1 (None at d = 0); built once per curve, nwin and w."""
+    comb = _W_COMBS.get((c, nwin, w))
+    if comb is None:
+        comb = []
+        base = (c.gx, c.gy)
+        for _ in range(nwin):
+            row = [None]
+            for _d in range((1 << w) - 1):
+                row.append(ec_add(c, row[-1], base))
+            comb.append(row)
+            base = ec_add(c, row[-1], base)            # 2^w * base
+        _W_COMBS[(c, nwin, w)] = comb
+    return comb
+
+
+def _jac_dbl(c: WCurve, P):
+    X, Y, Z = P
+    p = c.p
+    if Z == 0 or Y == 0:
+        return (1, 1, 0)
+    yy = Y * Y % p
+    s = 4 * X * yy % p
+    zz = Z * Z % p
+    m = (3 * X * X + c.a * zz * zz) % p
+    X3 = (m * m - 2 * s) % p
+    return (X3, (m * (s - X3) - 8 * yy * yy) % p, 2 * Y * Z % p)
+
+
+def _jac_add_affine(c: WCurve, P, Q):
+    """Jacobian P (Z = 0: the identity) + affine Q (None: the identity)."""
+    if Q is None:
+        return P
+    X1, Y1, Z1 = P
+    if Z1 == 0:
+        return (Q[0], Q[1], 1)
+    p = c.p
+    zz = Z1 * Z1 % p
+    h = (Q[0] * zz - X1) % p
+    r = (Q[1] * zz * Z1 - Y1) % p
+    if h == 0:
+        return _jac_dbl(c, P) if r == 0 else (1, 1, 0)
+    hh = h * h % p
+    hhh = h * hh % p
+    v = X1 * hh % p
+    X3 = (r * r - hhh - 2 * v) % p
+    return (X3, (r * (v - X3) - Y1 * hhh) % p, Z1 * h % p)
+
+
+def ec_base_mul(c: WCurve, k: int):
+    """k*G (None for the identity) for 0 <= k < 2^(8 ceil(qbits / 8))."""
+    nwin = -(-c.q.bit_length() // 8)
+    if not 0 <= k < 1 << (8 * nwin):
+        raise ValueError("scalar out of range")
+    acc = (1, 1, 0)
+    for j, row in enumerate(ec_base_comb(c, nwin, 8)):
+        acc = _jac_add_affine(c, acc, row[(k >> (8 * j)) & 0xFF])
+    X, Y, Z = acc
+    if Z == 0:
+        return None
+    zi = pow(Z, -1, c.p)
+    zi2 = zi * zi % c.p
+    return (X * zi2 % c.p, Y * zi2 * zi % c.p)
+
+
 def trunc_msb_mod_q(digest: bytes, q: int) -> int:
     """ECDSA hash-to-scalar: keep the leftmost min(qbits, hbits) bits of
     the digest, then reduce mod q."""
@@ -81,7 +157,7 @@ def trunc_msb_mod_q(digest: bytes, q: int) -> int:
 
 def ecdsa_sign_ref(c: WCurve, d: int, e: int, k: int):
     """Raw ECDSA with given truncated-hash int e and nonce k. Returns (r,s)."""
-    R = ec_mul(c, k, (c.gx, c.gy))
+    R = ec_base_mul(c, k)
     r = R[0] % c.q
     if r == 0:
         raise ValueError("r = 0: pick another nonce")
@@ -89,6 +165,64 @@ def ecdsa_sign_ref(c: WCurve, d: int, e: int, k: int):
     if s == 0:
         raise ValueError("s = 0: pick another nonce")
     return r, s
+
+
+def _sha2(hash_name: str):
+    return lambda data=b"": hashlib.new(
+        hash_name.replace("-", "").lower(), data)
+
+
+def _field_len(n: int) -> int:
+    return (n.bit_length() + 7) // 8
+
+
+def ecfsdsa_sign_ref(c: WCurve, d: int, k: int, msg: bytes,
+                     hash_name: str = "SHA256") -> bytes:
+    """EC-FSDSA (ISO 14888-3) signing with an injected nonce k: W = k*G,
+    r = FE2OS(Wx) || FE2OS(Wy), e = OS2I(H(r || m)) mod q,
+    s = (k + e d) mod q; returns r || s."""
+    W = ec_base_mul(c, k)
+    if W is None:
+        raise ValueError("k*G is the identity: pick another nonce")
+    p_len = _field_len(c.p)
+    r = W[0].to_bytes(p_len, "big") + W[1].to_bytes(p_len, "big")
+    e = int.from_bytes(_sha2(hash_name)(r + msg).digest(), "big") % c.q
+    return r + ((k + e * d) % c.q).to_bytes(_field_len(c.q), "big")
+
+
+def bip0340_tagged_hash(hash_name: str, tag: bytes, *chunks: bytes) -> bytes:
+    """H(H(tag) || H(tag) || chunks...)."""
+    alg = _sha2(hash_name)
+    th = alg(tag).digest()
+    return alg(th + th + b"".join(chunks)).digest()
+
+
+def bip0340_sign_ref(c: WCurve, d: int, msg: bytes, aux: bytes,
+                     hash_name: str = "SHA256") -> bytes:
+    """BIP-340 signing with injected auxiliary bytes: d' = d or q - d so
+    that d'*G has even y; t = d' XOR H_aux(aux); k0 = H_nonce(t || Px ||
+    m) mod q; R = k0*G, k = k0 or q - k0 so that R has even y;
+    e = H_challenge(Rx || Px || m) mod q; returns Rx || (k + e d') mod q.
+    The reference's form for any (curve, hash): t keeps d''s bytes beyond
+    the digest length."""
+    p, q = c.p, c.q
+    p_len, q_len = _field_len(p), _field_len(q)
+    Y = ec_base_mul(c, d)
+    dp = d if Y[1] % 2 == 0 else (q - d) % q
+    ah = bip0340_tagged_hash(hash_name, b"BIP0340/aux", aux)
+    dp_b = dp.to_bytes(q_len, "big")
+    t = bytes(x ^ y for x, y in zip(dp_b, ah)) + dp_b[len(ah):]
+    px = Y[0].to_bytes(p_len, "big")
+    k0 = int.from_bytes(bip0340_tagged_hash(hash_name, b"BIP0340/nonce", t,
+                                            px, msg), "big") % q
+    if k0 == 0:
+        raise ValueError("BIP-340 nonce is 0: pick other auxiliary bytes")
+    R = ec_base_mul(c, k0)
+    k = k0 if R[1] % 2 == 0 else q - k0
+    rx = R[0].to_bytes(p_len, "big")
+    e = int.from_bytes(bip0340_tagged_hash(hash_name, b"BIP0340/challenge",
+                                           rx, px, msg), "big") % q
+    return rx + ((k + e * dp) % q).to_bytes(q_len, "big")
 
 
 def ecdsa_verify_ref(c: WCurve, Y, e: int, r: int, s: int) -> bool:

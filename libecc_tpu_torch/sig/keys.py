@@ -1,8 +1,8 @@
 """EC public keys for verification.
 
-Port of the verify-side part of ``libecc_tpu/sig/keys.py``: ``KeyBatch``,
-``pubkey_batch_from_affine_ints`` (host range and on-curve validation,
-which raises) and ``import_pub_raw``.
+Port of the verify-side part of ``libecc_tpu/sig/keys.py``: ``KeyBatch``
+(with ``pub_affine_ints``), ``pubkey_batch_from_affine_ints`` (host range
+and on-curve validation, which raises) and ``import_pub_raw``.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from dataclasses import dataclass
 import torch
 
 from ..config import resolve_device
-from ..curves.shortw import ShortWCurve, PrjPoint
+from ..curves.shortw import ShortWCurve, PrjPoint, to_affine_plain
+from ..nn import core as nn
 
 
 @dataclass
@@ -28,6 +29,14 @@ class KeyBatch:
     @property
     def device(self) -> torch.device:
         return self.pub.x.device
+
+    def pub_affine_ints(self):
+        """(xs, ys, inf): the keys' affine coordinates as host ints (0 at
+        the identity) and an np.bool identity mask. One field inversion
+        ladder on the keys' device."""
+        x, y, inf = to_affine_plain(self.curve, self.pub)
+        return (nn.batch_from_limbs(x), nn.batch_from_limbs(y),
+                inf.cpu().numpy())
 
 
 def pubkey_batch_from_affine_ints(curve: ShortWCurve, alg: str, xs, ys,

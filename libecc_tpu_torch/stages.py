@@ -16,7 +16,14 @@ Marks, in the order one batch passes them:
 * ``sig.eddsa.verify_core``: "decode" (the 2N-lane point), then the double
   multiply's, then "accept";
 * ``curves.scalar_mul.fixed_base_double_mul_public``: "comb" (u*G),
-  "table" (the table and the window digits), "windowed" (v*Q).
+  "table" (the table and the window digits), "windowed" (v*Q);
+* ``sig.batch_verify``'s three entry points: "keys" (BIP0340 only: the
+  keys' affine coordinates), "parse" (the host loop: lengths, ranges,
+  challenges, z_i, c), "lift" (ECFSDSA: R uploaded; BIP0340: R lifted
+  from x, the even-y keys) or "decode" (Ed25519: A and R as one 2N-lane
+  batch), then "table" (both tables and digit arrays, in
+  ``straus_double_mul_public_w4``), "straus", "reduce" (the lane-tree
+  sum), "comb" (c*G) and "accept".
 """
 
 from __future__ import annotations

@@ -199,3 +199,63 @@ def test_ed_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):                    # a = 1
         megamul.windowed_mul(a1, torch.zeros((16, 4, 8, 3), dtype=torch.int32,
                                              device=dev), digs, ExtPoint)
+
+
+@pytest.mark.parametrize("name", ["P-256", "SECP256K1"])
+def test_dbln_add_kernel_matches_plain(dev, name):
+    """Kernel 5 (2^n*P + Q) for n = 0, 1, 2, 4 and kernel 8c, identity
+    lanes included."""
+    c = params.get_curve(name)
+    rng = np.random.RandomState(76)
+    A, B = _points(c, rng, 777, dev), _points(c, rng, 777, dev)
+    before = point.launches["point_dbln_add"]
+    for n in (0, 1, 2, 4):
+        got = c.pdbln_add(A, B, n)
+        want = point.point_dbln_add_plain(c, A, B, n)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert point.launches["point_dbln_add"] == before + 4
+    e = edwards.get_edwards_curve("ED25519")
+    EA = _ed_extended(e, rng, _ed_affine(e, rng, 777), dev)
+    EB = _ed_extended(e, rng, _ed_affine(e, rng, 777), dev)
+    for n in (0, 2, 4):
+        got = e.pdbln_add(EA, EB, n)
+        want = edpoint.ed_dbln_add_plain(e, EA, EB, n)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        point.point_dbln_add(c, A, B, -1)
+
+
+@pytest.mark.parametrize("name", ["P-256", "SECP256K1", "ED25519"])
+def test_straus_kernels_match_plain(dev, name):
+    """Kernels 6 (as built for a = -3 and for a = 0) and 6-ed against their
+    plain versions (zero and short scalars included), through
+    straus_double_mul_public_w4, and the same points from the joint-table
+    Straus (kernels 5 and 8c)."""
+    rng = np.random.RandomState(77)
+    n = 300
+    if name == "ED25519":
+        c, cls = edwards.get_edwards_curve(name), ExtPoint
+        P = _ed_extended(c, rng, _ed_affine(c, rng, n), dev)
+        Q = _ed_extended(c, rng, _ed_affine(c, rng, n), dev)
+    else:
+        c, cls = params.get_curve(name), PrjPoint
+        P, Q = _points(c, rng, n, dev), _points(c, rng, n, dev)
+    us = [0, 1, 0, 1 << 100] + _ints(rng, n - 4, c.q)
+    vs = [0, 0, 5, 3] + _ints(rng, n - 4, c.q)
+    ut = nn.upload(nn.batch_to_limbs(us, 8), dev)
+    vt = nn.upload(nn.batch_to_limbs(vs, 8), dev)
+    nbits = c.scalar_bits()
+    ptab = scalar_mul._build_mul_table(c, P)
+    qtab = scalar_mul._build_mul_table(c, Q)
+    du = scalar_mul._window_digits(ut, nbits)
+    dv = scalar_mul._window_digits(vt, nbits)
+    want = megamul.straus_mul_plain(c, ptab, du, qtab, dv, cls)
+    got = scalar_mul.straus_double_mul_public_w4(c, ut, P, vt, Q)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    joint = scalar_mul.straus_double_mul_public(c, ut, P, vt, Q)
+    ctx = c.fp_ctx
+    for a, b in ((0, 2), (1, 2)):               # x/z and y/z agree
+        assert torch.equal(nn.mont_mul(got[a], joint[b], ctx),
+                           nn.mont_mul(joint[a], got[b], ctx))
+    with pytest.raises(ValueError):             # digits differ in nwin
+        megamul.straus_mul(c, ptab, du, qtab, dv[:-1].contiguous(), cls)
