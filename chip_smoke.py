@@ -7,13 +7,16 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It builds the port's CUDA kernels from libecc_tpu_torch/csrc with nvcc,
 checks each kernel bitwise against its plain PyTorch version on the card,
-and drives three paths at batch 8192, bytes in:
+and drives four paths at batch 8192, bytes in:
 
 1. batched P-256 ECDSA verification, through verify_batch,
    verify_batch_async and verify_batches (accept mask out);
 2. batched Ed25519 verification, through eddsa.verify_batch (accept mask
    out);
-3. batch verification (one accept for the whole batch), through
+3. batched Ed448 verification (K = 14 kernels, a = 1), through
+   eddsa.verify_batch("ed448") (accept mask out), and the Ed448 and
+   Ed448ph vectors;
+4. batch verification (one accept for the whole batch), through
    batch_verify.ecfsdsa_verify_batch (P-256), bip0340_verify_batch
    (secp256k1) and eddsa_verify_batch (Ed25519), and the joint-table
    Straus straus_double_mul_public beside the separate-table one.
@@ -49,11 +52,25 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak bandwidth
 # float32 rate counts an FMA as 2 operations at 128 lanes/SM/clock; sm_90
 # issues 32-bit IMAD at 64 lanes/SM/clock, so 67e12 / 4.
 IMAD_PER_S = 67e12 / 4
+
+
+def fmul_slots(k: int) -> int:
+    """Multiply-add slots of one K-limb Montgomery product (wide products
+    count 2)."""
+    return 2 * (2 * k * k) + k
+
+
+def fsqr_slots(k: int) -> int:
+    return 2 * (k * (k - 1) // 2 + k + k * k) + k
+
+
 K = 8
-FMUL_SLOTS = 2 * (2 * K * K) + K                       # wide products count 2
-FSQR_SLOTS = 2 * (K * (K - 1) // 2 + K + K * K) + K
+FMUL_SLOTS = fmul_slots(K)
+FSQR_SLOTS = fsqr_slots(K)
 PER_WINDOW = (22, 30)                                  # (squares, products), w=4
 ED_PER_WINDOW = (16, 25)                # 4 dbl-2008-hwcd + add-2008-hwcd-3
+ED448_PER_WINDOW = (16, 26)             # the same with add-2008-hwcd (a = 1)
+ED448_ADD_PRODUCTS = 10                 # add-2008-hwcd: one product more
 STRAUS_PER_WINDOW = (22, 44)            # kernel 6: one more complete add
 ED_STRAUS_PER_WINDOW = (16, 34)         # kernel 6-ed: one more extended add
 JOINT_NDBL = 2                          # the joint Straus step: 2^2*acc + T
@@ -139,6 +156,47 @@ def _profile(torch, fn, label: str):
     return share
 
 
+def _device_ms(torch, fn, reps: int, event_ms: float):
+    """Device time of one call of fn with its launches back to back on the
+    card. CUDA events over back-to-back calls time the host's launch
+    interval wherever the kernel is shorter than it. So the stream first
+    sleeps while the host queues all reps calls, and events around the
+    queued calls time the card alone. None, with the reason printed, when
+    the host had not queued them all before the card woke, or when the
+    reading exceeds the back-to-back event time event_ms (the card cannot
+    take longer with the host out of the way)."""
+    fn()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - h0) * 1e3
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for sleep_ms in (2 * host_ms + 5, 8 * host_ms + 20):
+        # at most 2 GHz, so the sleep lasts at least sleep_ms
+        torch.cuda._sleep(int(sleep_ms * 2e6))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = not a.query()
+        torch.cuda.synchronize()
+        if queued:
+            break
+    if not queued:
+        print(f"  device time not measured: the host queued {reps} calls "
+              f"in more than the stream's sleep ({sleep_ms:.1f} ms)")
+        return None
+    dms = a.elapsed_time(b) / reps
+    if dms > 1.05 * event_ms:
+        print(f"  device time not measured: {dms:.5f} ms queued exceeds "
+              f"{event_ms:.5f} ms back to back")
+        return None
+    return round(dms, 5)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -191,7 +249,10 @@ def main() -> int:
     results = {}
 
     def rand_ints(n, mod):
-        raw = rng.randint(0, 1 << 30, size=(n, 9)).astype(object)
+        """n random residues mod `mod` from 30-bit words: 9 words (270
+        bits) for the 256-bit moduli, 16 (480 bits) for Ed448's."""
+        words = max(9, -(-(mod.bit_length() + 14) // 30))
+        raw = rng.randint(0, 1 << 30, size=(n, words)).astype(object)
         return [int(sum(int(v) << (30 * i) for i, v in enumerate(row)) % mod)
                 for row in raw]
 
@@ -559,15 +620,16 @@ def main() -> int:
         """Time a kernel and its plain version on the same inputs, hold the
         two bitwise, and compute the bound of the work."""
         kms, kout = timer.ms(kfn, kreps)
+        dms = _device_ms(torch, kfn, kreps, kms)
         pms, pout = timer.ms(pfn, preps, warm=1 if preps > 1 else 0)
         err = cmp(name, kout if isinstance(kout, tuple) else [kout],
                   pout if isinstance(pout, tuple) else [pout], n)
         bms, by = _bound_ms(nbytes, slots)
-        print(f"kernel {name}: {kms:.4f} ms at N={n} (plain {pms:.3f} ms, "
-              f"bound {bms:.6f} ms by {by})")
+        print(f"kernel {name}: {kms:.4f} ms at N={n} (device {dms} ms "
+              f"queued; plain {pms:.3f} ms, bound {bms:.6f} ms by {by})")
         return {"n": n, "max_abs_err": err, "ms": round(kms, 5),
-                "plain_ms": round(pms, 4), "bound_ms": round(bms, 6),
-                "bound_by": by}
+                "device_ms": dms, "plain_ms": round(pms, 4),
+                "bound_ms": round(bms, 6), "bound_by": by}
 
     def time_kernels(kern, path_counts, batch_counts, path):
         for name, args in kern.items():
@@ -590,18 +652,20 @@ def main() -> int:
         pts = [H.ed_base_mul(hc, v % eq) for v in rand_ints(uniq, eq)]
         return [pts[i % uniq] for i in range(n)]
 
-    def extended(pts):
-        lams = [1 + v % (ep - 1) for v in rand_ints(len(pts), ep)]
+    def extended(pts, cv=ec):
+        ctx_, pc = cv.fp_ctx, cv.fp_ctx.p_int
+        lams = [1 + v % (pc - 1) for v in rand_ints(len(pts), pc)]
         cols = [[], [], [], []]
         for (x, y), lam in zip(pts, lams):
             for col, v in zip(cols, (x * lam, y * lam, lam, x * y * lam)):
-                col.append(v % ep)
-        return ExtPoint(*[ectx.from_ints(col, dev) for col in cols])
+                col.append(v % pc)
+        return ExtPoint(*[ctx_.from_ints(col, dev) for col in cols])
 
-    def ed_affine_of(P, i):
-        zi = pow(ectx.to_ints(P.z[:, i:i + 1])[0], -1, ep)
-        return (ectx.to_ints(P.x[:, i:i + 1])[0] * zi % ep,
-                ectx.to_ints(P.y[:, i:i + 1])[0] * zi % ep)
+    def ed_affine_of(P, i, cv=ec):
+        ctx_, pc = cv.fp_ctx, cv.fp_ctx.p_int
+        zi = pow(ctx_.to_ints(P.z[:, i:i + 1])[0], -1, pc)
+        return (ctx_.to_ints(P.x[:, i:i + 1])[0] * zi % pc,
+                ctx_.to_ints(P.y[:, i:i + 1])[0] * zi % pc)
 
     EA = ed_points(POINT_N)
     EB = ed_points(POINT_N)
@@ -780,7 +844,245 @@ def main() -> int:
                               "launches_per_batch": e_per_batch[name], **m}
             row["max_abs_err"] = results[name]["max_abs_err"]
 
-    # 7. batch verification: kernels 5, 8c, 6 and 6-ed against their plain
+    # 7. the Ed448 path (K = 14, a = 1): kernels 1, 8a, 8b and 7 at K = 14
+    # against their plain versions, then eddsa.verify_batch("ed448") at
+    # batch 8192 -----------------------------------------------------------
+    x4 = edwards.get_edwards_curve("ED448")
+    xctx = x4.fp_ctx
+    xp, xq, k14 = xctx.p_int, x4.q, xctx.k
+    hx = H.EdCurve(xp, x4.a, x4.d, x4.gx, x4.gy, xq, x4.h)
+    fmul14, fsqr14 = fmul_slots(k14), fsqr_slots(k14)
+    # kernel 1 under p = 2^448 - 2^224 - 1 (top limb 0xFFFFFFFF) at the
+    # decode's width, edge operands 0, 1, p - 1 first
+    xn = 2 * BATCH
+    xs_ = [0, 1, xp - 1, xp - 1, 1] + rand_ints(xn - 5, xp)
+    ys_ = [xp - 1, xp - 1, xp - 1, 0, 1] + rand_ints(xn - 5, xp)
+    a14 = nn.upload(nn.batch_to_limbs(xs_, k14), dev)
+    b14 = nn.upload(nn.batch_to_limbs(ys_, k14), dev)
+    cmp("mont_mul_k14", [mont.mont_mul(a14, b14, xctx)],
+        [nn.mont_mul(a14, b14, xctx)], xn, " under Ed448's p")
+    cmp("mont_sqr_k14", [mont.mont_sqr(a14, xctx)], [nn.mont_sqr(a14, xctx)],
+        xn, " under Ed448's p")
+    rinv = pow(xctx.R, -1, xp)
+    got = nn.batch_from_limbs(mont.mont_mul(a14, b14, xctx)[:, :64])
+    _check(got == [x * y * rinv % xp for x, y in zip(xs_[:64], ys_[:64])],
+           "mont_mul_k14 disagrees with Python integers")
+
+    def x_points(n, uniq=64):
+        pts = [H.ed_base_mul(hx, v) for v in rand_ints(uniq, xq)]
+        return [pts[i % uniq] for i in range(n)]
+
+    XA_ = x_points(POINT_N)
+    XB_ = x_points(POINT_N)
+    XB_[0], XA_[1] = ident, ident                       # P + O, O + Q
+    XA_[2] = XB_[2] = ident                             # O + O
+    XB_[3] = XA_[3]                                     # P = Q
+    XB_[4] = ((-XA_[4][0]) % xp, XA_[4][1])             # P = -Q
+    XA4, XB4 = extended(XA_, x4), extended(XB_, x4)
+    cmp("ed_add_k14", edpoint.ed_add(x4, XA4, XB4),
+        edpoint.ed_add_plain(x4, XA4, XB4), POINT_N)
+    cmp("ed_dbl_k14", edpoint.ed_dbl(x4, XA4),
+        edpoint.ed_dbl_plain(x4, XA4), POINT_N)
+    S4 = edpoint.ed_add(x4, XA4, XB4)
+    D4 = edpoint.ed_dbl(x4, XA4)
+    for i in range(8):
+        _check(ed_affine_of(S4, i, x4) == H.ed_add(hx, XA_[i], XB_[i]),
+               f"ed_add_k14 lane {i} disagrees with the host oracle")
+        _check(ed_affine_of(D4, i, x4) == H.ed_add(hx, XA_[i], XA_[i]),
+               f"ed_dbl_k14 lane {i} disagrees with the host oracle")
+
+    xwpts = x_points(WINDOWED_N)
+    xms = rand_ints(WINDOWED_N, xq)
+    xms[0] = xms[1] = 0                                 # all-zero scalars
+    xms[2], xms[3], xms[4] = 1, 5, (1 << 37) + 3        # leading zeros
+    xmt = nn.upload(nn.batch_to_limbs(xms, x4.q_ctx.k), dev)
+    xtable = scalar_mul._build_mul_table(x4, extended(xwpts, x4))
+    xdigs = scalar_mul._window_digits(xmt, x4.scalar_bits())
+    _check(xdigs.shape[0] == 112, f"Ed448 digits: {xdigs.shape[0]} windows")
+    t0 = time.perf_counter()
+    want = megamul.windowed_mul_plain(x4, xtable, xdigs, ExtPoint)
+    print(f"windowed_mul_ed_k14 plain at N={WINDOWED_N}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    got = megamul.windowed_mul(x4, xtable, xdigs, ExtPoint)
+    cmp("windowed_mul_ed_k14", got, want, WINDOWED_N)
+    for i in range(6):
+        _check(ed_affine_of(got, i, x4) == H.ed_mul(hx, xms[i], xwpts[i]),
+               f"windowed_mul_ed_k14 lane {i} disagrees with the host oracle")
+
+    # the comb of the verify path: 56 windows of 256 entries, built once on
+    # the host (hostref.ed_base_comb) and kept on the device
+    t0 = time.perf_counter()
+    comb448 = scalar_mul._comb_table_dev(x4, x4.scalar_bits(), dev)
+    comb_s = time.perf_counter() - t0
+    comb_bytes = comb448.numel() * comb448.element_size()
+    print(f"Ed448 comb: {comb448.shape[0]} windows x {comb448.shape[2]} "
+          f"entries, {comb_bytes} bytes on the device, first build "
+          f"{comb_s:.2f} s (cached for the process)")
+
+    # fixture: 1024 unique (57-byte seed, 32-byte message, signature) from
+    # the port's RFC 8032 Ed448 signer, tiled
+    t0 = time.perf_counter()
+    x_pubs, x_msgs, x_sigs = [], [], []
+    for _ in range(UNIQUE):
+        seed, msg = rng.bytes(57), rng.bytes(32)
+        pub, sig = H.ed448_sign(hx, seed, msg)
+        x_pubs.append(pub), x_msgs.append(msg), x_sigs.append(sig)
+    x_pubs, x_msgs, x_sigs = x_pubs * reps, x_msgs * reps, x_sigs * reps
+    print(f"Ed448 fixture: {UNIQUE} unique tuples from the host signer, "
+          f"tiled to {BATCH}, in {time.perf_counter() - t0:.1f} s")
+
+    def x_enc(v):
+        return v.to_bytes(57, "little")
+
+    def x_s(sg):
+        return int.from_bytes(sg[57:], "little")
+
+    bad_xp, bad_xm, bad_xs = list(x_pubs), list(x_msgs), list(x_sigs)
+    for i in range(0, 10):                              # R with a bit flipped
+        bad_xs[i] = bytes([x_sigs[i][0] ^ 1]) + x_sigs[i][1:]
+    for i in range(10, 20):                             # S + q
+        bad_xs[i] = x_sigs[i][:57] + x_enc(x_s(x_sigs[i]) + xq)
+    for i in range(20, 30):                             # S = q
+        bad_xs[i] = x_sigs[i][:57] + x_enc(xq)
+    for i in range(30, 40):                             # S >= 2^448
+        bad_xs[i] = x_sigs[i][:57] + x_enc(x_s(x_sigs[i]) + (1 << 448))
+    for i in range(40, 50):                             # another message
+        bad_xm[i] = bytes([x_msgs[i][0] ^ 0x5A]) + x_msgs[i][1:]
+    x_no_x = next(y for y in range(2, 100) if pow(
+        (y * y - 1) * pow(x4.d * y * y - 1, -1, xp) % xp, (xp - 1) // 2,
+        xp) != 1)
+    for i in range(50, 60):                             # y has no x
+        bad_xp[i] = x_enc(x_no_x)
+    for i in range(60, 70):                             # y >= p (y = p + 1)
+        bad_xp[i] = x_enc(xp + 1)
+    for i in range(70, 77):                             # y + 2^(448..454)
+        bad_xp[i] = x_enc(int.from_bytes(x_pubs[i], "little")
+                          | 1 << (448 + i - 70))
+    for i in range(80, 90):                             # x = 0, sign bit set
+        bad_xp[i] = x_enc(1 | 1 << 455)
+    x_want_bad = np.ones(BATCH, bool)
+    x_want_bad[:77] = False
+    x_want_bad[80:90] = False
+
+    reset()
+    acc = eddsa.verify_batch("ed448", x_pubs, x_msgs, x_sigs)
+    _check(acc.all(), f"eddsa.verify_batch(ed448) rejected "
+                      f"{int((~acc).sum())} valid lanes")
+    acc = eddsa.verify_batch("ed448", bad_xp, bad_xm, bad_xs)
+    _check((acc == x_want_bad).all(),
+           "eddsa.verify_batch(ed448): corrupted lanes wrong "
+           f"({np.flatnonzero(acc != x_want_bad)[:20].tolist()})")
+    x_counts = snapshot()
+    print("Ed448 path launches:", json.dumps(x_counts))
+    x_kernels = ["mont_mul_k14", "mont_sqr_k14", "ed_add_k14", "ed_dbl_k14",
+                 "windowed_mul_ed_k14"]
+    for name in x_kernels:
+        _check(x_counts[name] >= 1,
+               f"kernel {name} was not launched on the Ed448 path")
+    print("Ed448 path: valid lanes accept; R bit flip, S + q, S = q, "
+          "S >= 2^448, another message, y without x, y >= p, y with a bit "
+          "of 448-454 set and x = 0 with the sign bit reject")
+
+    with open(os.path.join(VEC, "wycheproof_subset.jsonl")) as f:
+        xrows = [v for v in map(json.loads, f)
+                 if v.get("scheme") == "EDDSA" and v.get("curve") == "ED448"]
+    _check(len(xrows) == 18, f"expected 18 Ed448 Wycheproof rows, got "
+                             f"{len(xrows)}")
+    for ctx_ in sorted({v.get("context", "") for v in xrows}):
+        vs = [v for v in xrows if v.get("context", "") == ctx_]
+        acc = eddsa.verify_batch("ed448", [bytes.fromhex(v["pub"])
+                                           for v in vs],
+                                 [bytes.fromhex(v["msg"]) for v in vs],
+                                 [bytes.fromhex(v["sig"]) for v in vs],
+                                 context=bytes.fromhex(ctx_))
+        _check(acc.tolist() == [v["result"] == "valid" for v in vs],
+               f"Wycheproof Ed448 rows (context {ctx_!r}): wrong results")
+    x_variants = {"EDDSA448": "ed448", "EDDSA448PH": "ed448ph"}
+    with open(os.path.join(VEC, "kats_full.jsonl")) as f:
+        xkats = [r for r in map(json.loads, f) if r.get("alg") in x_variants]
+    _check(len(xkats) == 11, f"expected 11 EDDSA448 KAT rows, got "
+                             f"{len(xkats)}")
+    for r in xkats:
+        ctx_ = bytes.fromhex(r["adata_hex"]) if r["adata_hex"] else b""
+        seed, msg = bytes.fromhex(r["priv"]), bytes.fromhex(r["msg_hex"])
+        sig = bytes.fromhex(r["sig"])
+        pub, mine = H.ed448_sign(hx, seed, msg, x_variants[r["alg"]], ctx_)
+        _check(mine == sig, f"{r['name']}: the host signer differs")
+        bad = bytes([sig[0] ^ 1]) + sig[1:]
+        acc = eddsa.verify_batch(x_variants[r["alg"]], [pub] * 3,
+                                 [msg, msg + b"x", msg], [sig, sig, bad],
+                                 context=ctx_)
+        _check(acc.tolist() == [True, False, False],
+               f"{r['name']}: wrong accept mask {acc.tolist()}")
+    print(f"Ed448 vectors: {len(xrows)} Wycheproof rows and {len(xkats)} KAT "
+          "rows (ed448ph included) give their recorded results on the card")
+
+    # measurements of the Ed448 batch (eddsa.verify_batch, bytes in, accept
+    # mask out)
+    ed448, x_marked = time_batch(
+        lambda: eddsa.verify_batch("ed448", x_pubs, x_msgs, x_sigs),
+        "Ed448 verify", ["parse", "challenge", "decode", "comb", "table",
+                         "windowed", "accept", "return"],
+        lambda acc_: bool(acc_.all()))
+    x_per_batch = ed448["launches_per_batch"]
+
+    # kernels 1, 8a, 8b and 7 at K = 14 at the Ed448 path's shapes: kernel
+    # 1 on the decode's own operands at 2N lanes (x and y: the factors of
+    # its last product, y: the operand of its first square), 8a and 8b on
+    # the edge lanes above, 7 on the verify batch's own table and digits
+    xdP = x_marked["decode"][0]
+    xdx, xdy = xdP.x.contiguous(), xdP.y.contiguous()
+    _check(xdx.shape[1] == 2 * BATCH, f"the Ed448 decode ran "
+                                      f"{xdx.shape[1]} lanes")
+    XA48 = ExtPoint(*[t[:, :N].contiguous() for t in XA4])
+    XB48 = ExtPoint(*[t[:, :N].contiguous() for t in XB4])
+    xtab8, xdigs8 = x_marked["table"]
+    fe14 = 4 * k14                                      # bytes a coordinate
+    x_kern = {
+        "mont_mul_k14": (lambda: mont.mont_mul(xdx, xdy, xctx),
+                         lambda: nn.mont_mul(xdx, xdy, xctx), 200, 20,
+                         xn * 3 * fe14, xn * fmul14),
+        "mont_sqr_k14": (lambda: mont.mont_sqr(xdy, xctx),
+                         lambda: nn.mont_sqr(xdy, xctx), 200, 20,
+                         xn * 2 * fe14, xn * fsqr14),
+        "ed_add_k14": (lambda: edpoint.ed_add(x4, XA48, XB48),
+                       lambda: edpoint.ed_add_plain(x4, XA48, XB48), 100, 3,
+                       N * 12 * fe14, N * ED448_ADD_PRODUCTS * fmul14),
+        "ed_dbl_k14": (lambda: edpoint.ed_dbl(x4, XA48),
+                       lambda: edpoint.ed_dbl_plain(x4, XA48), 100, 3,
+                       N * 7 * fe14, N * (4 * fsqr14 + 4 * fmul14)),
+        "windowed_mul_ed_k14": (
+            lambda: megamul.windowed_mul(x4, xtab8, xdigs8, ExtPoint),
+            lambda: megamul.windowed_mul_plain(x4, xtab8, xdigs8, ExtPoint),
+            5, 1, N * (16 * 4 * fe14 + xdigs8.shape[0] * 4 + 4 * fe14),
+            N * xdigs8.shape[0] * (ED448_PER_WINDOW[0] * fsqr14
+                                   + ED448_PER_WINDOW[1] * fmul14)),
+    }
+    source.update({"mont_mul_k14": "mont.cu", "mont_sqr_k14": "mont.cu",
+                   "ed_add_k14": "edpoint.cu", "ed_dbl_k14": "edpoint.cu",
+                   "windowed_mul_ed_k14": "windowed.cu"})
+    replaces.update({
+        "mont_mul_k14": "libecc_tpu/ops/pallas/mont.py:297",
+        "mont_sqr_k14": "libecc_tpu/ops/pallas/mont.py:297",
+        "ed_add_k14": "libecc_tpu/ops/pallas/edpoint.py:110",
+        "ed_dbl_k14": "libecc_tpu/ops/pallas/edpoint.py:126",
+        "windowed_mul_ed_k14": "libecc_tpu/ops/pallas/megamul.py:161",
+    })
+    for name, args in x_kern.items():
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": f"libecc_tpu_torch/csrc/{source[name]}",
+            "replaces": replaces[name], "path": "Ed448 verify",
+            # the large-K body backend these K = 14 instances stand for
+            "also_replaces": "libecc_tpu/ops/pallas/rows.py:129",
+            "launches": x_counts[name],
+            "launches_per_batch": x_per_batch[name],
+            **measure(name, *args, xn if name.startswith("mont") else N),
+            # over every comparison of this kernel in the run
+            "max_abs_err": results[name]["max_abs_err"],
+            "library_ms": None})
+
+    # 8. batch verification: kernels 5, 8c, 6 and 6-ed against their plain
     # versions, then the three batch entry points at 8192 signatures ------
     k1 = params.get_curve("SECP256K1")
     k1w = H.WCurve(k1.fp_ctx.p_int, k1.a, k1.b, k1.gx, k1.gy, k1.q)
@@ -1048,6 +1350,9 @@ def main() -> int:
         **rated(p256, "verifies_per_s"),
         "pipelined_verifies_per_s": round(piped, 1)}}))
     print(json.dumps({"verify_ed25519": rated(ed25519, "verifies_per_s")}))
+    print(json.dumps({"verify_ed448": {
+        **rated(ed448, "verifies_per_s"), "comb_bytes": comb_bytes,
+        "comb_first_build_s": round(comb_s, 3)}}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

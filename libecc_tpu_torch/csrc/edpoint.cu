@@ -4,14 +4,17 @@
 // Replace the TPU kernels libecc_tpu/ops/pallas/edpoint.py:_build_add
 // (:110 -> _pallas_call :92, pallas_call :99; public point_add :165, body
 // _add_body :49), _build_dbl (:126; public point_dbl :171, body
-// _dbl_body :75) and _build_dbln_add (:140; public point_dbln_add :177),
-// for a = -1 (Ed25519).
+// _dbl_body :75) and _build_dbln_add (:140; public point_dbln_add :177).
+// 8a and 8b are built for a = -1 at K = 8 (Ed25519) and for a = 1 at
+// K = 14 (Ed448; with kernel 1 at K = 14 and kernel 7's K = 14 instance
+// they are the port's counterpart of the rows.py:RowOps backend, :129,
+// which the TPU kernels take for Ed448's K = 32); 8c for a = -1 at K = 8.
 //
 // Bound on the H100: integer-multiply issue. An add is 9 field products
 // for 12 x 4K bytes of traffic per lane (8 coordinates in, 4 out): at
-// K = 8 about 2,400 multiply-add slots for 384 bytes, well above the
-// card's slot-to-byte ratio; a double is 4 squares and 4 products for 7 x
-// 32 bytes. Design: as kernels 2 and 3, one thread per lane, the whole
+// K = 8 about 2,400 multiply-add slots for 384 bytes (at K = 14 about
+// 7,200 for 672 bytes), well above the card's slot-to-byte ratio; a
+// double is 4 squares and 4 products for 7 x 4K bytes. Design: as kernels 2 and 3, one thread per lane, the whole
 // formula in registers. Kernel 8c keeps the point in registers across its
 // n doublings (4n squares and 4n + 9 products for 384 bytes; n is a
 // run-time argument); with n = 0 it is the add, T of P included.
@@ -19,7 +22,7 @@
 
 namespace ecc {
 
-template <int K>
+template <int K, int AK>
 __global__ void __launch_bounds__(256)
 ed_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
               const uint32_t* __restrict__ y1,
@@ -35,10 +38,10 @@ ed_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
   if (lane >= n) return;
   const ExtPt<K> P = load_ext<K>(x1, y1, z1, t1, n, lane);
   const ExtPt<K> Q = load_ext<K>(x2, y2, z2, t2, n, lane);
-  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add_m1<K>(P, Q, C));
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<K, AK>(P, Q, C));
 }
 
-template <int K>
+template <int K, int AK>
 __global__ void __launch_bounds__(256)
 ed_dbl_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
               const uint32_t* __restrict__ y1,
@@ -50,7 +53,7 @@ ed_dbl_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
   const Fe<K> X = load_fe<K>(x1, n, lane);
   const Fe<K> Y = load_fe<K>(y1, n, lane);
   const Fe<K> Z = load_fe<K>(z1, n, lane);
-  store_ext<K>(x3, y3, z3, t3, n, lane, ed_dbl_m1<K>(X, Y, Z, C));
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_dbl<K, AK>(X, Y, Z, C));
 }
 
 template <int K>
@@ -70,9 +73,10 @@ ed_dbln_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
   if (lane >= n) return;
   ExtPt<K> acc = load_ext<K>(x1, y1, z1, t1, n, lane);
 #pragma unroll 1
-  for (int i = 0; i < ndbl; ++i) acc = ed_dbl_m1<K>(acc.x, acc.y, acc.z, C);
+  for (int i = 0; i < ndbl; ++i)
+    acc = ed_dbl<K, ED_A_M1>(acc.x, acc.y, acc.z, C);
   const ExtPt<K> T = load_ext<K>(x2, y2, z2, t2, n, lane);
-  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add_m1<K>(acc, T, C));
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<K, ED_A_M1>(acc, T, C));
 }
 
 constexpr int kThreads = 256;
@@ -81,35 +85,61 @@ inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-}  // namespace ecc
-
-extern "C" {
-
-// in: x1, y1, z1, t1, x2, y2, z2, t2; out: x3, y3, z3, t3 (device
-// pointers). Returns cudaErrorInvalidValue for a curve with a != -1.
-int ed_add_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
-              uint32_t* const* out, long long n, void* stream) {
-  if (C->a_kind != ecc::ED_A_M1) return (int)cudaErrorInvalidValue;
+template <int K, int AK>
+int launch_add(const EdCurveCtx<K>* C, const uint32_t* const* in,
+               uint32_t* const* out, long long n, void* stream) {
+  if (C->a_kind != AK) return (int)cudaErrorInvalidValue;
   if (n > 0)
-    ecc::ed_add_kernel<8><<<ecc::blocks_for(n), ecc::kThreads, 0,
-                            (cudaStream_t)stream>>>(
+    ed_add_kernel<K, AK><<<blocks_for(n), kThreads, 0,
+                           (cudaStream_t)stream>>>(
         *C, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], out[0],
         out[1], out[2], out[3], n);
   return (int)cudaGetLastError();
 }
 
-// in: x1, y1, z1; out: x3, y3, z3, t3.
-int ed_dbl_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
-              uint32_t* const* out, long long n, void* stream) {
-  if (C->a_kind != ecc::ED_A_M1) return (int)cudaErrorInvalidValue;
+template <int K, int AK>
+int launch_dbl(const EdCurveCtx<K>* C, const uint32_t* const* in,
+               uint32_t* const* out, long long n, void* stream) {
+  if (C->a_kind != AK) return (int)cudaErrorInvalidValue;
   if (n > 0)
-    ecc::ed_dbl_kernel<8><<<ecc::blocks_for(n), ecc::kThreads, 0,
-                            (cudaStream_t)stream>>>(
+    ed_dbl_kernel<K, AK><<<blocks_for(n), kThreads, 0,
+                           (cudaStream_t)stream>>>(
         *C, in[0], in[1], in[2], out[0], out[1], out[2], out[3], n);
   return (int)cudaGetLastError();
 }
 
+}  // namespace ecc
+
+// Each entry point returns cudaErrorInvalidValue for a curve whose a is
+// not the one it is built for: a = -1 at K = 8 (Ed25519), a = 1 at K = 14
+// (Ed448).
+extern "C" {
+
+// in: x1, y1, z1, t1, x2, y2, z2, t2; out: x3, y3, z3, t3 (device
+// pointers).
+int ed_add_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
+              uint32_t* const* out, long long n, void* stream) {
+  return ecc::launch_add<8, ecc::ED_A_M1>(C, in, out, n, stream);
+}
+
+// in: x1, y1, z1; out: x3, y3, z3, t3.
+int ed_dbl_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
+              uint32_t* const* out, long long n, void* stream) {
+  return ecc::launch_dbl<8, ecc::ED_A_M1>(C, in, out, n, stream);
+}
+
+int ed_add_k14(const ecc::EdCurveCtx<14>* C, const uint32_t* const* in,
+               uint32_t* const* out, long long n, void* stream) {
+  return ecc::launch_add<14, ecc::ED_A_1>(C, in, out, n, stream);
+}
+
+int ed_dbl_k14(const ecc::EdCurveCtx<14>* C, const uint32_t* const* in,
+               uint32_t* const* out, long long n, void* stream) {
+  return ecc::launch_dbl<14, ecc::ED_A_1>(C, in, out, n, stream);
+}
+
 // in: x1, y1, z1, t1 (P), x2, y2, z2, t2 (T); out: 2^ndbl * P + T.
+// Built for a = -1 at K = 8 only.
 int ed_dbln_add_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
                    uint32_t* const* out, long long n, int ndbl,
                    void* stream) {

@@ -96,7 +96,10 @@ __device__ __forceinline__ Fe<K> fe_select(bool c, const Fe<K>& a,
   return r;
 }
 
-// x + top * 2^(32K), known < 2p  ->  value mod p.
+// x + top * 2^(32K), known < 2p  ->  value mod p. Where p's top limb is
+// 0xFFFFFFFF (P-256, and Ed448's p = 2^448 - 2^224 - 1 at K = 14) a sum
+// or a Montgomery result can pass 2^(32K); then top = 1, the value is
+// certainly >= p, and x - p (mod 2^(32K)) is the residue.
 template <int K>
 __device__ __forceinline__ Fe<K> cond_sub_p(const uint32_t* x, uint32_t top,
                                             const FieldCtx<K>& f) {

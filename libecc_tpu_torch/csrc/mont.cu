@@ -1,8 +1,13 @@
-// Kernel 1: batched Montgomery multiply and square.
+// Kernel 1: batched Montgomery multiply and square, built for K = 8
+// (256-bit moduli) and K = 14 (448-bit: Ed448's p and q).
 //
 // Replaces the TPU kernel libecc_tpu/ops/pallas/mont.py:_build -> call
 // (pallas_call at :297; public mont_mul_relaxed :323, mont_sqr_relaxed
-// :328; body _mont_body_refs :115).
+// :328; body _mont_body_refs :115). The K = 14 instance also stands for
+// libecc_tpu/ops/pallas/rows.py:RowOps (:129; mul, sqr, _redc), the O(K)
+// body those TPU kernels switch to when K > 30 (Ed448 is K = 32 limbs of
+// 15 bits there): on Hopper a 448-bit product is the same template at
+// K = 14, not a code path of its own.
 //
 // Bound on the H100: integer-multiply issue and memory are close. One
 // product is 2K^2 + K 32-bit multiplies (K^2 + K(K+1)/2 + K for the
@@ -48,25 +53,50 @@ inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+template <int K>
+int launch_mul(const FieldCtx<K>* f, const uint32_t* a, const uint32_t* b,
+               uint32_t* out, long long n, void* stream) {
+  if (n > 0)
+    mont_mul_kernel<K><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        *f, a, b, out, n);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_sqr(const FieldCtx<K>* f, const uint32_t* a, uint32_t* out,
+               long long n, void* stream) {
+  if (n > 0)
+    mont_sqr_kernel<K><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        *f, a, out, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace ecc
 
+// One pair of entry points per limb count: K = 8 (256-bit moduli) and
+// K = 14 (448-bit, Ed448's p and q).
 extern "C" {
 
 int mont_mul_k8(const ecc::FieldCtx<8>* f, const uint32_t* a,
                 const uint32_t* b, uint32_t* out, long long n,
                 void* stream) {
-  if (n > 0)
-    ecc::mont_mul_kernel<8><<<ecc::blocks_for(n), ecc::kThreads, 0,
-                              (cudaStream_t)stream>>>(*f, a, b, out, n);
-  return (int)cudaGetLastError();
+  return ecc::launch_mul<8>(f, a, b, out, n, stream);
 }
 
 int mont_sqr_k8(const ecc::FieldCtx<8>* f, const uint32_t* a, uint32_t* out,
                 long long n, void* stream) {
-  if (n > 0)
-    ecc::mont_sqr_kernel<8><<<ecc::blocks_for(n), ecc::kThreads, 0,
-                              (cudaStream_t)stream>>>(*f, a, out, n);
-  return (int)cudaGetLastError();
+  return ecc::launch_sqr<8>(f, a, out, n, stream);
+}
+
+int mont_mul_k14(const ecc::FieldCtx<14>* f, const uint32_t* a,
+                 const uint32_t* b, uint32_t* out, long long n,
+                 void* stream) {
+  return ecc::launch_mul<14>(f, a, b, out, n, stream);
+}
+
+int mont_sqr_k14(const ecc::FieldCtx<14>* f, const uint32_t* a,
+                 uint32_t* out, long long n, void* stream) {
+  return ecc::launch_sqr<14>(f, a, out, n, stream);
 }
 
 }  // extern "C"

@@ -17,11 +17,16 @@
 // registers across all windows; only the tables and the digits are read
 // from device memory and the result written once.
 //
-// Twisted Edwards (kernels 7 and 6-ed, extended, a = -1): the accumulator
-// starts at (0 : 1 : 1 : 0); per window, most significant first, w
-// dbl-2008-hwcd doublings, then for each pair one add-2008-hwcd-3 of the
-// lane's entry. Both formulas are complete for a = -1, so there is no
-// identity select.
+// Twisted Edwards (kernels 7 and 6-ed, extended): the accumulator starts
+// at (0 : 1 : 1 : 0); per window, most significant first, w
+// dbl-2008-hwcd doublings, then for each pair one extended add of the
+// lane's entry (edpoint.cuh: add-2008-hwcd-3 for a = -1, add-2008-hwcd for
+// a = 1). Both formula sets are complete on the curves they are built for,
+// so there is no identity select. Built for a = -1 at K = 8 (Ed25519,
+// kernels 7 and 6-ed) and, for kernel 7, a = 1 at K = 14 (Ed448: q has
+// 446 bits, so 112 windows; with kernels 1, 8a and 8b at K = 14 this is
+// the port's counterpart of the TPU's rows.py:RowOps backend, :129, which
+// megamul.py takes for Ed448's K = 32).
 //
 // The order of the adds is the reference's: the projective values (not
 // only the points) are held bitwise against the plain versions and, on the
@@ -36,13 +41,18 @@
 //
 // Bound on the H100: integer-multiply issue (per window 22 squares and 30
 // products in kernel 4, 16 and 25 in kernel 7; one add more per pair: 22
-// and 44 in kernel 6, 16 and 34 in kernel 6-ed), plus the table bytes:
+// and 44 in kernel 6, 16 and 34 in kernel 6-ed; 16 and 26 in kernel 7
+// at a = 1, whose add takes one product more), plus the table bytes:
 // each window reads one 3K- or 4K-word entry per pair and lane, 64 x 96 or
 // 64 x 128 bytes per pair at K = 8, so table traffic is small beside the
 // arithmetic. Design: one thread per lane, accumulator and all formula
 // temporaries in registers, table entries read straight from device
 // memory (coalesced across lanes of a warp for one limb). The pair loop
 // stays rolled so that the second pair adds no code and few registers.
+// At K = 14 an extended point is 56 registers, so the accumulator, the
+// entry and the formula temporaries exceed the 255 a thread may hold:
+// that instance spills to local memory (ptxas -v, chip_smoke.py prints
+// it), a cost left to later work.
 // Staging the tables in shared memory (1.5 or 2 KB a lane and pair) is
 // later work.
 #include "edpoint.cuh"
@@ -92,7 +102,7 @@ windowed_mul_kernel(const CurveCtx<K> C, const Pairs<NPAIRS> pr, int nwin,
   store_pt<K>(ox, oy, oz, n, lane, acc);
 }
 
-template <int K, int NPAIRS>
+template <int K, int AK, int NPAIRS>
 __global__ void __launch_bounds__(128)
 windowed_mul_ed_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
                        int nwin, uint32_t* __restrict__ ox,
@@ -111,7 +121,7 @@ windowed_mul_ed_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
   for (int wi = 0; wi < nwin; ++wi) {
 #pragma unroll 1
     for (int d = 0; d < kWindow; ++d)
-      acc = ed_dbl_m1<K>(acc.x, acc.y, acc.z, C);
+      acc = ed_dbl<K, AK>(acc.x, acc.y, acc.z, C);
 #pragma unroll 1
     for (int pi = 0; pi < NPAIRS; ++pi) {
       const int dig = pr.digits[pi][(long long)wi * n + lane] & (kEntries - 1);
@@ -119,7 +129,7 @@ windowed_mul_ed_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
       const ExtPt<K> T = load_ext<K>(e, e + coord_stride,
                                      e + 2 * coord_stride,
                                      e + 3 * coord_stride, n, lane);
-      acc = ed_add_m1<K>(acc, T, C);
+      acc = ed_add<K, AK>(acc, T, C);
     }
   }
   store_ext<K>(ox, oy, oz, ot, n, lane, acc);
@@ -165,14 +175,14 @@ int launch_w(const CurveCtx<8>* C, const int32_t* const* digits, int nwin,
   return (int)cudaGetLastError();
 }
 
-template <int NPAIRS>
-int launch_ed(const EdCurveCtx<8>* C, const int32_t* const* digits,
+template <int K, int AK, int NPAIRS>
+int launch_ed(const EdCurveCtx<K>* C, const int32_t* const* digits,
               int nwin, const uint32_t* const* tables, uint32_t* const* out,
               long long n, void* stream) {
-  if (C->a_kind != ED_A_M1) return (int)cudaErrorInvalidValue;
+  if (C->a_kind != AK) return (int)cudaErrorInvalidValue;
   if (n > 0)
-    windowed_mul_ed_kernel<8, NPAIRS><<<blocks_for(n), kThreads, 0,
-                                        (cudaStream_t)stream>>>(
+    windowed_mul_ed_kernel<K, AK, NPAIRS><<<blocks_for(n), kThreads, 0,
+                                            (cudaStream_t)stream>>>(
         *C, pairs_of<NPAIRS>(digits, tables), nwin, out[0], out[1], out[2],
         out[3], n);
   return (int)cudaGetLastError();
@@ -205,7 +215,8 @@ int windowed_mul_ed_k8_w4(const ecc::EdCurveCtx<8>* C,
                           const int32_t* const* digits, int nwin,
                           const uint32_t* const* tables,
                           uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_ed<1>(C, digits, nwin, tables, out, n, stream);
+  return ecc::launch_ed<8, ecc::ED_A_M1, 1>(C, digits, nwin, tables, out, n,
+                                            stream);
 }
 
 // Kernel 6-ed: u*P + v*Q.
@@ -213,7 +224,19 @@ int straus_mul_ed_k8_w4(const ecc::EdCurveCtx<8>* C,
                         const int32_t* const* digits, int nwin,
                         const uint32_t* const* tables, uint32_t* const* out,
                         long long n, void* stream) {
-  return ecc::launch_ed<2>(C, digits, nwin, tables, out, n, stream);
+  return ecc::launch_ed<8, ecc::ED_A_M1, 2>(C, digits, nwin, tables, out, n,
+                                            stream);
+}
+
+// Kernel 7 at K = 14 for a = 1 (Ed448): m*P with uint32[16][4][14][n]
+// tables and out x, y, z, t (each uint32[14][n]). Returns
+// cudaErrorInvalidValue for a curve with a != 1.
+int windowed_mul_ed_k14_w4(const ecc::EdCurveCtx<14>* C,
+                           const int32_t* const* digits, int nwin,
+                           const uint32_t* const* tables,
+                           uint32_t* const* out, long long n, void* stream) {
+  return ecc::launch_ed<14, ecc::ED_A_1, 1>(C, digits, nwin, tables, out, n,
+                                            stream);
 }
 
 }  // extern "C"

@@ -191,7 +191,7 @@ register_edwards(
 P448 = 2**448 - 2**224 - 1
 
 register_edwards(
-    # RFC 8032 edwards448; K = 14 limbs, so its kernels raise on the card
+    # RFC 8032 edwards448: K = 14 limbs, a = 1 (the K = 14 kernels)
     "ED448",
     p=P448,
     a=1,

@@ -100,6 +100,13 @@ def library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+def kernel_name(base: str, k: int) -> str:
+    """A kernel's name in the launch counts and reports: the K = 8 instance
+    keeps the base name, a wider one carries its limb count ("mont_mul",
+    "mont_mul_k14")."""
+    return base if k == 8 else f"{base}_k{k}"
+
+
 def check(rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:

@@ -5,69 +5,88 @@ Counterparts of ``libecc_tpu/ops/pallas/edpoint.py:point_add`` /
 ``point_dbl`` / ``point_dbln_add``. The plain versions below evaluate the
 reference's bodies (``_add_body`` :49, ``_dbl_body`` :75) operation for
 operation on plain tensor field operations, for every a (add-2008-hwcd-3
-for a = -1, add-2008-hwcd otherwise; dbl-2008-hwcd). The kernels cover
-a = -1, the only K = 8 Edwards curve (Ed25519); on the card any other a
-raises. Wrappers launch the kernels for tensors on the card and take the
-plain versions only for tensors on the CPU.
+for a = -1, add-2008-hwcd otherwise; dbl-2008-hwcd). Kernels 8a and 8b
+are built for a = -1 at K = 8 (Ed25519) and a = 1 at K = 14 (Ed448, where
+they stand for the TPU's large-K ``rows.py:RowOps`` backend); kernel 8c
+for a = -1 at K = 8 (``BUILT``). On the card any other (K, a) raises.
+Wrappers launch the kernels for tensors on the card and take the plain
+versions only for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ...nn import core as nn
 from . import build
-from .mont import FieldCtx8, field_struct, _stream
+from .build import kernel_name
+from .mont import field_ctx_type, field_struct, mont_limbs, _stream
 from .point import PlainField, _check_point, ptr_array
 
-launches = {"ed_add": 0, "ed_dbl": 0, "ed_dbln_add": 0}
+A_M1, A_1 = 1, 2        # ecc::ED_A_M1, ecc::ED_A_1
 
-A_M1 = 1                # ecc::ED_A_M1; the kernels refuse any other a
+# The built instances: C entry base -> {K: a_kind}. a = -1 at K = 8
+# (Ed25519), a = 1 at K = 14 (Ed448). The support checks, the ctypes typing
+# and the launch counts all derive from this table.
+BUILT = {"ed_add": {8: A_M1, 14: A_1}, "ed_dbl": {8: A_M1, 14: A_1},
+         "ed_dbln_add": {8: A_M1}}
+
+launches = {kernel_name(base, k): 0 for base, ks in BUILT.items()
+            for k in ks}
 
 
-class EdCurveCtx8(ctypes.Structure):
-    """ecc::EdCurveCtx<8> of csrc/edpoint.cuh."""
-    _fields_ = [("f", FieldCtx8), ("one", ctypes.c_uint32 * 8),
-                ("d2", ctypes.c_uint32 * 8), ("a_kind", ctypes.c_int32)]
+@functools.lru_cache(maxsize=None)
+def ed_curve_ctx_type(k: int) -> type:
+    """ctypes mirror of ecc::EdCurveCtx<k> (csrc/edpoint.cuh)."""
+    fe = ctypes.c_uint32 * k
+    return type(f"EdCurveCtx{k}", (ctypes.Structure,), {"_fields_": [
+        ("f", field_ctx_type(k)), ("one", fe), ("d2", fe), ("d", fe),
+        ("a_kind", ctypes.c_int32)]})
 
 
-def curve_struct(curve) -> EdCurveCtx8:
+def a_kind(curve) -> int:
+    return A_M1 if curve.a_is_m1 else A_1 if curve.a_is_1 else 0
+
+
+def curve_struct(curve):
     """Curve constants for the kernels, Montgomery form."""
     s = getattr(curve, "_cuda_struct", None)
     if s is None:
         ctx = curve.fp_ctx
-        p = ctx.p_int
-
-        def mont(v):
-            return (ctypes.c_uint32 * 8)(
-                *[int(x) for x in nn.to_limbs(v % p * ctx.R % p, ctx.k)])
-
-        s = EdCurveCtx8(field_struct(ctx), mont(1), mont(curve.d2),
-                        A_M1 if curve.a_is_m1 else 0)
+        s = ed_curve_ctx_type(ctx.k)(
+            field_struct(ctx), mont_limbs(ctx, 1), mont_limbs(ctx, curve.d2),
+            mont_limbs(ctx, curve.d), a_kind(curve))
         curve._cuda_struct = s
     return s
 
 
-def check_curve(curve, what: str) -> None:
-    """Raise unless the kernels take this curve (a = -1; K is checked with
-    the operands)."""
-    if not curve.a_is_m1:
-        raise ValueError(f"{what}: the CUDA kernels take a = -1 curves, not "
-                         f"{curve.name}")
+def a_name(kind: int) -> str:
+    return "-1" if kind == A_M1 else "1"
+
+
+def check_curve(curve, built: dict, what: str) -> None:
+    """Raise unless a kernel built for {K: a_kind} takes this curve."""
+    k, kind = curve.fp_ctx.k, a_kind(curve)
+    if kind == 0 or built.get(k) != kind:
+        names = ", ".join(f"(K = {k_}, a = {a_name(a)})"
+                          for k_, a in built.items())
+        raise ValueError(f"{what}: the CUDA kernel is built for {names}, "
+                         f"not {curve.name} (K = {k}, a = {curve.a})")
 
 
 def _lib():
     lib = build.library("edpoint")
     if not getattr(lib, "_typed", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        for fn in (lib.ed_add_k8, lib.ed_dbl_k8):
-            fn.argtypes = [ctypes.POINTER(EdCurveCtx8), vp, vp, ll, vp]
-            fn.restype = ctypes.c_int
-        lib.ed_dbln_add_k8.argtypes = [ctypes.POINTER(EdCurveCtx8), vp, vp,
-                                       ll, ctypes.c_int, vp]
-        lib.ed_dbln_add_k8.restype = ctypes.c_int
+        for base, ks in BUILT.items():
+            ndbl = [ctypes.c_int] if base == "ed_dbln_add" else []
+            for k in ks:
+                fn = getattr(lib, f"{base}_k{k}")
+                fn.argtypes = [ctypes.POINTER(ed_curve_ctx_type(k)), vp, vp,
+                               ll, *ndbl, vp]
+                fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -142,54 +161,41 @@ def ed_dbln_add_plain(curve, P, Q, ndbl: int):
 
 # -- kernel wrappers -------------------------------------------------------
 
+def _launch(base, curve, ins, *extra):
+    """Launch ed_add / ed_dbl / ed_dbln_add at the curve's K on the card:
+    the four output coordinates."""
+    check_curve(curve, BUILT[base], base)
+    _check_point(curve, ins, f"{base} operands")
+    k = curve.fp_ctx.k
+    out = [torch.empty_like(ins[0]) for _ in range(4)]
+    rc = getattr(_lib(), f"{base}_k{k}")(
+        ctypes.byref(curve_struct(curve)), ptr_array(ins), ptr_array(out),
+        ins[0].shape[1], *extra, _stream())
+    name = kernel_name(base, k)
+    build.check(rc, name)
+    launches[name] += 1
+    return out
+
+
 def ed_add(curve, P, Q):
     """P + Q, unified; kernel 8a for tensors on the card."""
     if P.x.device.type == "cpu":
         return ed_add_plain(curve, P, Q)
-    check_curve(curve, "ed_add")
-    _check_point(curve, P, "ed_add P")
-    _check_point(curve, Q, "ed_add Q")
-    if Q.x.shape != P.x.shape:
-        raise ValueError("ed_add: P and Q differ in shape")
-    out = [torch.empty_like(P.x) for _ in range(4)]
-    rc = _lib().ed_add_k8(ctypes.byref(curve_struct(curve)),
-                          ptr_array([*P, *Q]), ptr_array(out),
-                          P.x.shape[1], _stream())
-    build.check(rc, "ed_add")
-    launches["ed_add"] += 1
-    return type(P)(*out)
+    return type(P)(*_launch("ed_add", curve, [*P, *Q]))
 
 
 def ed_dbl(curve, P):
     """2P; kernel 8b for tensors on the card."""
     if P.x.device.type == "cpu":
         return ed_dbl_plain(curve, P)
-    check_curve(curve, "ed_dbl")
-    _check_point(curve, P[:3], "ed_dbl P")
-    out = [torch.empty_like(P.x) for _ in range(4)]
-    rc = _lib().ed_dbl_k8(ctypes.byref(curve_struct(curve)),
-                          ptr_array(list(P[:3])), ptr_array(out),
-                          P.x.shape[1], _stream())
-    build.check(rc, "ed_dbl")
-    launches["ed_dbl"] += 1
-    return type(P)(*out)
+    return type(P)(*_launch("ed_dbl", curve, list(P[:3])))
 
 
 def ed_dbln_add(curve, P, Q, ndbl: int):
-    """2^ndbl * P + Q; kernel 8c for tensors on the card."""
+    """2^ndbl * P + Q; kernel 8c (K = 8, a = -1) for tensors on the
+    card."""
     if P.x.device.type == "cpu":
         return ed_dbln_add_plain(curve, P, Q, ndbl)
-    check_curve(curve, "ed_dbln_add")
-    _check_point(curve, P, "ed_dbln_add P")
-    _check_point(curve, Q, "ed_dbln_add Q")
-    if Q.x.shape != P.x.shape:
-        raise ValueError("ed_dbln_add: P and Q differ in shape")
     if ndbl < 0:
         raise ValueError("ed_dbln_add: ndbl must be >= 0")
-    out = [torch.empty_like(P.x) for _ in range(4)]
-    rc = _lib().ed_dbln_add_k8(ctypes.byref(curve_struct(curve)),
-                               ptr_array([*P, *Q]), ptr_array(out),
-                               P.x.shape[1], ndbl, _stream())
-    build.check(rc, "ed_dbln_add")
-    launches["ed_dbln_add"] += 1
-    return type(P)(*out)
+    return type(P)(*_launch("ed_dbln_add", curve, [*P, *Q], ndbl))

@@ -11,15 +11,16 @@ and 6, model ``w``), four is twisted Edwards (kernels 7 and 6-ed, model
   doubling block (to_jac with the identity select, w dbl-2001-b
   doublings, from_jac), then one complete add of the lane's entry of each
   table, in the order the tables are given.
-* Twisted Edwards (a = -1): the accumulator starts at (0 : 1 : 1 : 0);
-  per window w dbl-2008-hwcd doublings, then one extended add of the
-  lane's entry of each table. The formulas are complete, so there is no
-  identity select.
+* Twisted Edwards: the accumulator starts at (0 : 1 : 1 : 0); per window
+  w dbl-2008-hwcd doublings, then one extended add of the lane's entry of
+  each table. The formulas are complete, so there is no identity select.
 
 The kernels read the entry by index, so they serve PUBLIC scalars only
 (see the note in the CUDA source). The TPU kernel's VMEM sizing and its
-w -> w-1 fallback have no counterpart: the kernels are built for K = 8 at
-w = 4, and the wrappers raise on any other shape for a tensor on the card.
+w -> w-1 fallback have no counterpart: the kernels are built at w = 4 for
+K = 8 (all four; Edwards a = -1) and, for kernel 7, K = 14 (Edwards a = 1,
+Ed448: the counterpart of the TPU's large-K ``rows.py:RowOps`` backend);
+the wrappers raise on any other shape for a tensor on the card.
 """
 
 from __future__ import annotations
@@ -29,32 +30,44 @@ import ctypes
 import torch
 
 from . import build, edpoint
+from .build import kernel_name
 from .mont import _stream
-from .point import (PlainField, _add_body, a_kind, curve_struct,
-                    dbln_jac_body, ptr_array, CurveCtx8)
-
-launches = {"windowed_mul": 0, "windowed_mul_ed": 0, "straus_mul": 0,
-            "straus_mul_ed": 0}
+from .point import (PlainField, _add_body, a_kind, curve_ctx_type,
+                    curve_struct, dbln_jac_body, ptr_array)
 
 WINDOW = 4
 
-# (Edwards, number of pairs) -> kernel name and C entry point
-_KERNELS = {(False, 1): ("windowed_mul", "windowed_mul_k8_w4"),
-            (True, 1): ("windowed_mul_ed", "windowed_mul_ed_k8_w4"),
-            (False, 2): ("straus_mul", "straus_mul_k8_w4"),
-            (True, 2): ("straus_mul_ed", "straus_mul_ed_k8_w4")}
+# The built instances: (K, model, number of pairs) -> kernel name, C entry
+# point and, for model "ed", the a_kind the formulas are built for (model
+# "w" takes every a). Model "w" is short Weierstrass (three coordinates),
+# "ed" twisted Edwards (four). The support check, the ctypes typing and the
+# launch counts derive from this table.
+A_M1, A_1 = edpoint.A_M1, edpoint.A_1
+_KERNELS = {(8, "w", 1): ("windowed_mul", "windowed_mul_k8_w4", None),
+            (8, "ed", 1): ("windowed_mul_ed", "windowed_mul_ed_k8_w4", A_M1),
+            (8, "w", 2): ("straus_mul", "straus_mul_k8_w4", None),
+            (8, "ed", 2): ("straus_mul_ed", "straus_mul_ed_k8_w4", A_M1),
+            (14, "ed", 1): (kernel_name("windowed_mul_ed", 14),
+                            "windowed_mul_ed_k14_w4", A_1)}
+
+launches = {name: 0 for name, _, _ in _KERNELS.values()}
 
 
-def supported(curve, w: int) -> bool:
-    return curve.fp_ctx.k == 8 and w == WINDOW
+def supported(curve, w: int, model: str, npairs: int) -> bool:
+    """Whether a kernel is built for this curve's K (and, for model "ed",
+    its a), the model, the number of pairs and the window width."""
+    inst = _KERNELS.get((curve.fp_ctx.k, model, npairs))
+    return (inst is not None and w == WINDOW
+            and (inst[2] is None or inst[2] == edpoint.a_kind(curve)))
 
 
 def _lib():
     lib = build.library("windowed")
     if not getattr(lib, "_typed", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        for (ed, _), (_, cname) in _KERNELS.items():
-            ctx = edpoint.EdCurveCtx8 if ed else CurveCtx8
+        for (k, model, _), (_, cname, _) in _KERNELS.items():
+            ctx = (edpoint.ed_curve_ctx_type(k) if model == "ed"
+                   else curve_ctx_type(k))
             fn = getattr(lib, cname)
             fn.argtypes = [ctypes.POINTER(ctx), vp, ctypes.c_int, vp, vp, ll,
                            vp]
@@ -113,14 +126,19 @@ def straus_mul_plain(curve, ptab, du, qtab, dv, point_cls):
 
 def _launch(curve, tables, digits, point_cls):
     ed = _is_edwards(point_cls)
-    name, cname = _KERNELS[(ed, len(tables))]
-    if ed:
-        edpoint.check_curve(curve, name)
+    model, npairs = ("ed" if ed else "w"), len(tables)
     k = curve.fp_ctx.k
     w = (tables[0].shape[0] - 1).bit_length()
-    if not supported(curve, w):
-        raise ValueError(f"{name}: the CUDA kernel takes K = 8 and "
-                         f"w = {WINDOW}, not K = {k}, w = {w}")
+    if not supported(curve, w, model, npairs):
+        built = ", ".join(
+            f"K = {k_}" + ("" if a is None else f", a = {edpoint.a_name(a)}")
+            for (k_, m, n_), (_, _, a) in _KERNELS.items()
+            if (m, n_) == (model, npairs))
+        raise ValueError(f"megamul ({model}, {npairs} pair(s)): the CUDA "
+                         f"kernel is built for ({built}) and w = {WINDOW}, "
+                         f"not {curve.name} (K = {k}, a = {curve.a}), "
+                         f"w = {w}")
+    name, cname, _ = _KERNELS[(k, model, npairs)]
     n = tables[0].shape[-1]
     ncoord = len(point_cls._fields)
     nwin = digits[0].shape[0]

@@ -1,40 +1,57 @@
 """Kernel 1: batched Montgomery multiply and square (``csrc/mont.cu``).
 
-Counterpart of ``libecc_tpu/ops/pallas/mont.py``. The wrappers launch the
-CUDA kernel for tensors on the card and take the plain version
-(``nn.core.mont_mul`` / ``mont_sqr``) only for tensors on the CPU. There is
-no other switch.
+Counterpart of ``libecc_tpu/ops/pallas/mont.py``, built for K = 8 (256-bit
+moduli) and K = 14 (448-bit: Ed448; with kernels 8a, 8b and 7 at K = 14
+the counterpart of the TPU's large-K ``rows.py:RowOps`` backend). The
+wrappers launch the CUDA kernel for tensors on the card and take the plain
+version (``nn.core.mont_mul`` / ``mont_sqr``) only for tensors on the CPU.
+There is no other switch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ...nn import core as nn
 from . import build
+from .build import kernel_name
 
-# launches of each kernel (incremented only where the kernel is launched)
-launches = {"mont_mul": 0, "mont_sqr": 0}
+SUPPORTED_K = (8, 14)
 
-SUPPORTED_K = (8,)
+# launches of each kernel (incremented only where the kernel is launched);
+# the K = 14 instances count under their own names
+launches = {name: 0 for k in SUPPORTED_K
+            for name in (kernel_name("mont_mul", k),
+                         kernel_name("mont_sqr", k))}
 
 mont_mul_plain = nn.mont_mul
 mont_sqr_plain = nn.mont_sqr
 
 
-class FieldCtx8(ctypes.Structure):
-    """ecc::FieldCtx<8> of csrc/field.cuh."""
-    _fields_ = [("p", ctypes.c_uint32 * 8), ("pinv", ctypes.c_uint32)]
+@functools.lru_cache(maxsize=None)
+def field_ctx_type(k: int) -> type:
+    """ctypes mirror of ecc::FieldCtx<k> (csrc/field.cuh)."""
+    return type(f"FieldCtx{k}", (ctypes.Structure,), {
+        "_fields_": [("p", ctypes.c_uint32 * k), ("pinv", ctypes.c_uint32)]})
 
 
-def field_struct(ctx: nn.MontCtx) -> FieldCtx8:
+def mont_limbs(ctx: nn.MontCtx, v: int) -> ctypes.Array:
+    """v in ctx's Montgomery form as a ctypes uint32[K] (a curve constant
+    of the kernels' context structs)."""
+    p = ctx.p_int
+    return (ctypes.c_uint32 * ctx.k)(
+        *[int(x) for x in nn.to_limbs(v % p * ctx.R % p, ctx.k)])
+
+
+def field_struct(ctx: nn.MontCtx):
     """The kernels' modulus context: p and p' = -p^-1 mod 2^32."""
     s = getattr(ctx, "_cuda_struct", None)
     if s is None:
-        s = FieldCtx8((ctypes.c_uint32 * 8)(*[int(v) for v in ctx.p]),
-                      ctx.pinv32)
+        s = field_ctx_type(ctx.k)(
+            (ctypes.c_uint32 * ctx.k)(*[int(v) for v in ctx.p]), ctx.pinv32)
         ctx._cuda_struct = s
     return s
 
@@ -51,6 +68,9 @@ def check_operand(t: torch.Tensor, ctx: nn.MontCtx, what: str) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def _check_k(ctx: nn.MontCtx, what: str) -> None:
     if ctx.k not in SUPPORTED_K:
         raise ValueError(f"{what}: the CUDA kernels are built for K in "
                          f"{SUPPORTED_K}, not K = {ctx.k}")
@@ -68,12 +88,13 @@ def _lib():
     lib = build.library("mont")
     if not getattr(lib, "_typed", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.mont_mul_k8.argtypes = [ctypes.POINTER(FieldCtx8), vp, vp, vp,
-                                    ll, vp]
-        lib.mont_mul_k8.restype = ctypes.c_int
-        lib.mont_sqr_k8.argtypes = [ctypes.POINTER(FieldCtx8), vp, vp, ll,
-                                    vp]
-        lib.mont_sqr_k8.restype = ctypes.c_int
+        for k in SUPPORTED_K:
+            fctx = ctypes.POINTER(field_ctx_type(k))
+            mul, sqr = getattr(lib, f"mont_mul_k{k}"), getattr(
+                lib, f"mont_sqr_k{k}")
+            mul.argtypes = [fctx, vp, vp, vp, ll, vp]
+            sqr.argtypes = [fctx, vp, vp, ll, vp]
+            mul.restype = sqr.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -82,15 +103,18 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, ctx: nn.MontCtx):
     """a*b*R^-1 mod p on canonical int32[K, N] limbs."""
     if a.device.type == "cpu":
         return mont_mul_plain(a, b, ctx)
+    _check_k(ctx, "mont_mul")
     check_operand(a, ctx, "mont_mul a")
     check_operand(b, ctx, "mont_mul b")
     if b.shape != a.shape or b.device != a.device:
         raise ValueError("mont_mul: operands differ in shape or device")
     out = torch.empty_like(a)
-    rc = _lib().mont_mul_k8(ctypes.byref(field_struct(ctx)), _ptr(a),
-                            _ptr(b), _ptr(out), a.shape[1], _stream())
-    build.check(rc, "mont_mul")
-    launches["mont_mul"] += 1
+    rc = getattr(_lib(), f"mont_mul_k{ctx.k}")(
+        ctypes.byref(field_struct(ctx)), _ptr(a), _ptr(b), _ptr(out),
+        a.shape[1], _stream())
+    name = kernel_name("mont_mul", ctx.k)
+    build.check(rc, name)
+    launches[name] += 1
     return out
 
 
@@ -98,10 +122,13 @@ def mont_sqr(a: torch.Tensor, ctx: nn.MontCtx):
     """a^2*R^-1 mod p on canonical int32[K, N] limbs."""
     if a.device.type == "cpu":
         return mont_sqr_plain(a, ctx)
+    _check_k(ctx, "mont_sqr")
     check_operand(a, ctx, "mont_sqr a")
     out = torch.empty_like(a)
-    rc = _lib().mont_sqr_k8(ctypes.byref(field_struct(ctx)), _ptr(a),
-                            _ptr(out), a.shape[1], _stream())
-    build.check(rc, "mont_sqr")
-    launches["mont_sqr"] += 1
+    rc = getattr(_lib(), f"mont_sqr_k{ctx.k}")(
+        ctypes.byref(field_struct(ctx)), _ptr(a), _ptr(out), a.shape[1],
+        _stream())
+    name = kernel_name("mont_sqr", ctx.k)
+    build.check(rc, name)
+    launches[name] += 1
     return out

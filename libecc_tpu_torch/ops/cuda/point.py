@@ -14,42 +14,47 @@ only for tensors on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ...nn import core as nn
 from . import build
-from .mont import FieldCtx8, check_operand, field_struct, _stream
-
-launches = {"point_add": 0, "point_dbl": 0, "point_dbln_add": 0}
+from .build import kernel_name
+from .mont import (check_operand, field_ctx_type, field_struct,
+                   mont_limbs, _stream)
 
 A_GENERIC, A_M3, A_ZERO = 0, 1, 2
+# The built instances of kernels 2, 3 and 5 (every a): the support check,
+# the ctypes typing and the launch counts derive from these.
+BASES = ("point_add", "point_dbl", "point_dbln_add")
+SUPPORTED_K = (8,)
+
+launches = {kernel_name(base, k): 0 for base in BASES for k in SUPPORTED_K}
 
 
-class CurveCtx8(ctypes.Structure):
-    """ecc::CurveCtx<8> of csrc/field.cuh."""
-    _fields_ = [("f", FieldCtx8), ("one", ctypes.c_uint32 * 8),
-                ("a", ctypes.c_uint32 * 8), ("a2", ctypes.c_uint32 * 8),
-                ("b3", ctypes.c_uint32 * 8), ("a_kind", ctypes.c_int32)]
+@functools.lru_cache(maxsize=None)
+def curve_ctx_type(k: int) -> type:
+    """ctypes mirror of ecc::CurveCtx<k> (csrc/field.cuh)."""
+    fe = ctypes.c_uint32 * k
+    return type(f"CurveCtx{k}", (ctypes.Structure,), {"_fields_": [
+        ("f", field_ctx_type(k)), ("one", fe), ("a", fe), ("a2", fe),
+        ("b3", fe), ("a_kind", ctypes.c_int32)]})
 
 
 def a_kind(curve) -> int:
     return A_M3 if curve.a_is_m3 else A_ZERO if curve.a_is_0 else A_GENERIC
 
 
-def curve_struct(curve) -> CurveCtx8:
+def curve_struct(curve):
     """Curve constants for the kernels, Montgomery form."""
     s = getattr(curve, "_cuda_struct", None)
     if s is None:
         ctx = curve.fp_ctx
-        p = ctx.p_int
-
-        def mont(v):
-            return (ctypes.c_uint32 * 8)(
-                *[int(x) for x in nn.to_limbs(v % p * ctx.R % p, ctx.k)])
-
-        s = CurveCtx8(field_struct(ctx), mont(1), mont(curve.a),
-                      mont(curve.a2), mont(curve.b3), a_kind(curve))
+        s = curve_ctx_type(ctx.k)(
+            field_struct(ctx), mont_limbs(ctx, 1), mont_limbs(ctx, curve.a),
+            mont_limbs(ctx, curve.a2), mont_limbs(ctx, curve.b3),
+            a_kind(curve))
         curve._cuda_struct = s
     return s
 
@@ -62,12 +67,13 @@ def _lib():
     lib = build.library("point")
     if not getattr(lib, "_typed", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        for fn in (lib.point_add_k8, lib.point_dbl_k8):
-            fn.argtypes = [ctypes.POINTER(CurveCtx8), vp, vp, ll, vp]
-            fn.restype = ctypes.c_int
-        lib.point_dbln_add_k8.argtypes = [ctypes.POINTER(CurveCtx8), vp, vp,
-                                          ll, ctypes.c_int, vp]
-        lib.point_dbln_add_k8.restype = ctypes.c_int
+        for k in SUPPORTED_K:
+            cctx = ctypes.POINTER(curve_ctx_type(k))
+            for base in BASES:
+                ndbl = [ctypes.c_int] if base == "point_dbln_add" else []
+                fn = getattr(lib, f"{base}_k{k}")
+                fn.argtypes = [cctx, vp, vp, ll, *ndbl, vp]
+                fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -266,57 +272,50 @@ def point_dbln_add_plain(curve, P, Q, ndbl: int):
 # -- kernel wrappers -------------------------------------------------------
 
 def _check_point(curve, P, what):
+    """Raise unless the coordinates P (of one or more points) are operands
+    the kernels take, all of one shape."""
     for i, t in enumerate(P):
         check_operand(t, curve.fp_ctx, f"{what} coordinate {i}")
         if t.shape != P[0].shape:
             raise ValueError(f"{what}: coordinates differ in shape")
 
 
+def _launch(base, curve, ins, *extra):
+    """Launch point_add / point_dbl / point_dbln_add on the card: the three
+    output coordinates."""
+    k = curve.fp_ctx.k
+    if k not in SUPPORTED_K:
+        raise ValueError(f"{base}: the CUDA kernel is built for K in "
+                         f"{SUPPORTED_K}, not K = {k}")
+    _check_point(curve, ins, f"{base} operands")
+    out = [torch.empty_like(ins[0]) for _ in range(3)]
+    rc = getattr(_lib(), f"{base}_k{k}")(
+        ctypes.byref(curve_struct(curve)), ptr_array(ins), ptr_array(out),
+        ins[0].shape[1], *extra, _stream())
+    name = kernel_name(base, k)
+    build.check(rc, name)
+    launches[name] += 1
+    return out
+
+
 def point_add(curve, P, Q):
     """P + Q, complete; kernel 2 for tensors on the card."""
     if P.x.device.type == "cpu":
         return point_add_plain(curve, P, Q)
-    _check_point(curve, P, "point_add P")
-    _check_point(curve, Q, "point_add Q")
-    if Q.x.shape != P.x.shape:
-        raise ValueError("point_add: P and Q differ in shape")
-    out = [torch.empty_like(P.x) for _ in range(3)]
-    rc = _lib().point_add_k8(ctypes.byref(curve_struct(curve)),
-                             ptr_array([*P, *Q]), ptr_array(out),
-                             P.x.shape[1], _stream())
-    build.check(rc, "point_add")
-    launches["point_add"] += 1
-    return type(P)(*out)
+    return type(P)(*_launch("point_add", curve, [*P, *Q]))
 
 
 def point_dbl(curve, P):
     """2P, complete; kernel 3 for tensors on the card."""
     if P.x.device.type == "cpu":
         return point_dbl_plain(curve, P)
-    _check_point(curve, P, "point_dbl P")
-    out = [torch.empty_like(P.x) for _ in range(3)]
-    rc = _lib().point_dbl_k8(ctypes.byref(curve_struct(curve)),
-                             ptr_array(list(P)), ptr_array(out),
-                             P.x.shape[1], _stream())
-    build.check(rc, "point_dbl")
-    launches["point_dbl"] += 1
-    return type(P)(*out)
+    return type(P)(*_launch("point_dbl", curve, list(P)))
 
 
 def point_dbln_add(curve, P, Q, ndbl: int):
     """2^ndbl * P + Q for public points; kernel 5 for tensors on the card."""
     if P.x.device.type == "cpu":
         return point_dbln_add_plain(curve, P, Q, ndbl)
-    _check_point(curve, P, "point_dbln_add P")
-    _check_point(curve, Q, "point_dbln_add Q")
-    if Q.x.shape != P.x.shape:
-        raise ValueError("point_dbln_add: P and Q differ in shape")
     if ndbl < 0:
         raise ValueError("point_dbln_add: ndbl must be >= 0")
-    out = [torch.empty_like(P.x) for _ in range(3)]
-    rc = _lib().point_dbln_add_k8(ctypes.byref(curve_struct(curve)),
-                                  ptr_array([*P, *Q]), ptr_array(out),
-                                  P.x.shape[1], ndbl, _stream())
-    build.check(rc, "point_dbln_add")
-    launches["point_dbln_add"] += 1
-    return type(P)(*out)
+    return type(P)(*_launch("point_dbln_add", curve, [*P, *Q], ndbl))

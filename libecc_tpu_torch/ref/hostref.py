@@ -3,10 +3,10 @@
 Port of ``libecc_tpu/ref/hostref.py`` (its short-Weierstrass and twisted
 Edwards parts): independent textbook big-int EC math over Python ints,
 used to build the comb tables and the test and bench fixtures, and as the
-differential oracle for the batched kernels. It also holds an RFC 8032
-Ed25519 signer (pure, ctx and ph), an EC-FSDSA signer and a BIP-340 signer
-(nonce and auxiliary bytes injected) for fixtures on machines without the
-JAX package. Nothing here runs on the device.
+differential oracle for the batched kernels. It also holds RFC 8032
+Ed25519 (pure, ctx, ph) and Ed448 (pure, ph) signers, an EC-FSDSA signer
+and a BIP-340 signer (nonce and auxiliary bytes injected) for fixtures on
+machines without the JAX package. Nothing here runs on the device.
 """
 
 from __future__ import annotations
@@ -314,11 +314,13 @@ def ed_base_comb(c: EdCurve, nwin: int, w: int):
 
 
 def ed_base_mul(c: EdCurve, k: int):
-    """k*B for 0 <= k < 2^256, affine."""
-    if not 0 <= k < 1 << 256:
+    """k*B for 0 <= k < 2^(8 ceil(pbits / 8)) (2^256 on Ed25519, 2^448 on
+    Ed448: every RFC 8032 secret scalar), affine."""
+    nwin = -(-c.p.bit_length() // 8)
+    if not 0 <= k < 1 << (8 * nwin):
         raise ValueError("scalar out of range")
     acc = (0, 1, 1, 0)
-    for j, row in enumerate(ed_base_comb(c, 32, 8)):
+    for j, row in enumerate(ed_base_comb(c, nwin, 8)):
         acc = _ext_add(c, acc, row[(k >> (8 * j)) & 0xFF])
     zi = pow(acc[2], -1, c.p)
     return (acc[0] * zi % c.p, acc[1] * zi % c.p)
@@ -380,3 +382,63 @@ def ed25519_sign(c: EdCurve, seed: bytes, msg: bytes,
     k = int.from_bytes(hashlib.sha512(dom + enc_r + enc_a + msg).digest(),
                        "little") % c.q
     return enc_a, enc_r + ((r + k * s) % c.q).to_bytes(32, "little")
+
+
+# -- RFC 8032 Ed448 signing (fixtures) ----------------------------------------
+# The same comb (56 windows of 8 bits), SHAKE256 from hashlib, dom4 framing
+# on every variant (RFC 8032 5.2).
+
+ED448_DOM = b"SigEd448"
+ED448_VARIANTS = ("ed448", "ed448ph")
+
+
+def ed448_encode(P) -> bytes:
+    """Point -> 57 bytes: y little-endian, the low bit of x in bit 455."""
+    x, y = P
+    return (y | ((x & 1) << 455)).to_bytes(57, "little")
+
+
+def _shake256(data: bytes, n: int = 114) -> bytes:
+    return hashlib.shake_256(data).digest(n)
+
+
+def ed448_dom(variant: str, context: bytes) -> bytes:
+    """dom4(phflag, context) (RFC 8032 5.2): present on both variants, the
+    context may be empty."""
+    if variant not in ED448_VARIANTS:
+        raise ValueError(f"unknown Ed448 variant {variant!r}")
+    if len(context) > 255:
+        raise ValueError("context longer than 255 bytes")
+    phflag = 1 if variant == "ed448ph" else 0
+    return ED448_DOM + bytes([phflag, len(context)]) + context
+
+
+def _ed448_expand(c: EdCurve, seed: bytes):
+    if len(seed) != 57:
+        raise ValueError("Ed448 seeds are 57 bytes")
+    h = _shake256(seed)
+    a = bytearray(h[:57])
+    a[0] &= 252
+    a[55] |= 128
+    a[56] = 0
+    s = int.from_bytes(bytes(a), "little")
+    return s, h[57:], ed448_encode(ed_base_mul(c, s))
+
+
+def ed448_public(c: EdCurve, seed: bytes) -> bytes:
+    """Seed -> encoded public key A = s*B."""
+    return _ed448_expand(c, seed)[2]
+
+
+def ed448_sign(c: EdCurve, seed: bytes, msg: bytes, variant: str = "ed448",
+               context: bytes = b""):
+    """RFC 8032 5.2.6 signing -> (public key bytes, 114-byte signature).
+    ed448ph signs PH(M) = SHAKE256(M, 64)."""
+    dom = ed448_dom(variant, context)
+    if variant == "ed448ph":
+        msg = _shake256(msg, 64)
+    s, prefix, enc_a = _ed448_expand(c, seed)
+    r = int.from_bytes(_shake256(dom + prefix + msg), "little") % c.q
+    enc_r = ed448_encode(ed_base_mul(c, r))
+    k = int.from_bytes(_shake256(dom + enc_r + enc_a + msg), "little") % c.q
+    return enc_a, enc_r + ((r + k * s) % c.q).to_bytes(57, "little")

@@ -16,7 +16,7 @@ import torch
 from ..nn import core as nn
 from ..fp import field as fp
 from ..fp.field import FpCtx
-from ..hash import sha2
+from ..hash import sha2, sha3
 from ..ops.cuda import mont
 
 
@@ -31,27 +31,44 @@ def digests_to_words(digs: list[bytes]) -> np.ndarray:
         np.uint32)
 
 
-def batch_digests(hash_name: str, msgs: list[bytes], device) -> list[bytes]:
-    """SHA-512 digests of a message batch, hashed on `device`. Port of
-    ``libecc_tpu/sig/common.py:batch_digests`` (:30-70): the messages are
-    bucketed by padded block count and each bucket is hashed by one
-    ``sha512_device`` call. Unlike the reference, tiny buckets are not
-    hashed on the host (the port has no host hash layer) and buckets are
-    not padded to a power of two (nothing is traced)."""
-    if hash_name.replace("-", "").upper() != "SHA512":
+def _hasher(hash_name: str):
+    """(padded block count of a length, packer, device function, digest
+    bytes) of a ported hash: SHA-512 or one of the SHA-3 family."""
+    key = hash_name.replace("-", "").replace("_", "").upper()
+    if key == "SHA512":
+        return (sha2.nblocks_sha512, sha2.pack_blocks_sha512,
+                sha2.sha512_device, sha2.SHA512_DIGEST_BYTES)
+    sha3_names = {name.replace("_", ""): name for name in sha3.PARAMS}
+    if key not in sha3_names:
         raise ValueError(f"batch_digests: hash {hash_name!r} is not ported; "
-                         "SHA512 is")
+                         f"SHA512 and {', '.join(sha3.PARAMS)} are")
+    rate, outlen, dsbyte = sha3.PARAMS[sha3_names[key]]
+    return (lambda mlen: sha3.nblocks_keccak(mlen, rate),
+            lambda msgs: sha3.pack_blocks_keccak(msgs, rate, dsbyte),
+            lambda blocks: sha3.sha3_device(blocks, rate, outlen), outlen)
+
+
+def batch_digests(hash_name: str, msgs: list[bytes], device) -> list[bytes]:
+    """Digests of a message batch (SHA-512 or a SHA-3 / SHAKE, SHAKE256 at
+    114 bytes), hashed on `device`. Port of
+    ``libecc_tpu/sig/common.py:batch_digests`` (:30-70): the messages are
+    bucketed by padded block count and each bucket is hashed by one call of
+    the device function; each digest is its big-endian words cut to the
+    digest length (``make_sha3_device``'s convention for SHAKE256). Unlike
+    the reference, tiny buckets are not hashed on the host (the port has no
+    host hash layer) and buckets are not padded to a power of two (nothing
+    is traced)."""
+    nblocks, pack, device_fn, nb = _hasher(hash_name)
     groups = defaultdict(list)
     for i, m in enumerate(msgs):
-        groups[sha2.nblocks_sha512(len(m))].append(i)
+        groups[nblocks(len(m))].append(i)
     out: list = [None] * len(msgs)
-    nb = sha2.SHA512_DIGEST_BYTES
     for idxs in groups.values():
-        words = sha2.sha512_device(nn.upload(
-            sha2.pack_blocks_sha512([msgs[i] for i in idxs]), device))
+        words = device_fn(nn.upload(pack([msgs[i] for i in idxs]), device))
         raw = nn.to_host(words).T.astype(">u4").tobytes()
+        stride = 4 * words.shape[0]
         for j, i in enumerate(idxs):
-            out[i] = raw[j * nb:(j + 1) * nb]
+            out[i] = raw[j * stride:j * stride + nb]
     return out
 
 

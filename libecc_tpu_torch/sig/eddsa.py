@@ -1,4 +1,5 @@
-"""Batched EdDSA verification (RFC 8032 ed25519, ed25519ctx, ed25519ph).
+"""Batched EdDSA verification (RFC 8032 ed25519, ed25519ctx, ed25519ph,
+ed448, ed448ph).
 
 Port of the verify side of ``libecc_tpu/sig/eddsa.py``: the variant table,
 ``_dom`` / ``_prehash`` / ``check_context_rules``, ``decode_core`` (:131),
@@ -6,12 +7,13 @@ Port of the verify side of ``libecc_tpu/sig/eddsa.py``: the variant table,
 ``verify_with_challenges`` (:406) and ``verify_batch`` (:345).
 
 Verify: accept iff S < q, A and R decode, and S*B + k*(-A) == R with
-k = SHA-512(dom2 || R || A || PH(M)) mod q, compared projectively (no
-inversion). Encodings are little-endian with the sign of x in bit 255.
-The byte-level work (framing, challenge digests reduced mod q on host
-integers) runs on the host; the hashing and all group arithmetic run as
-batches on the device. Ed448 / Ed448ph need SHAKE256 and K = 14 kernels
-and raise ``NotImplementedError``; signing is not ported yet.
+k = H(dom || R || A || PH(M)) mod q, compared projectively (no
+inversion). Ed25519: H = SHA-512, dom2, 32-byte encodings with the sign
+of x in bit 255, K = 8. Ed448: H = SHAKE256 at 114 bytes, dom4 always,
+57-byte encodings with the sign in bit 455, K = 14 (the K = 14 kernels).
+The byte-level work (framing, PH(M), challenge digests reduced mod q on
+host integers) runs on the host; the hashing and all group arithmetic run
+as batches on the device. Signing is not ported yet.
 """
 
 from __future__ import annotations
@@ -65,13 +67,6 @@ def get_variant(name: str) -> Variant:
     return v
 
 
-def _check_ported(v: Variant) -> None:
-    if v.curve_name != "ED25519":
-        raise NotImplementedError(
-            f"{v.name}: Ed448 needs SHAKE256 and K = 14 kernels, which are "
-            "not ported yet")
-
-
 def _dom(v: Variant, context: bytes) -> bytes:
     """dom2/dom4 framing (RFC 8032 section 2)."""
     if not v.always_dom and v.phflag == 0 and not context:
@@ -80,9 +75,12 @@ def _dom(v: Variant, context: bytes) -> bytes:
 
 
 def _prehash(v: Variant, m: bytes) -> bytes:
+    """PH(M): M itself, SHA-512(M) for ed25519ph, SHAKE256(M, 64) for
+    ed448ph (host code, as in the reference)."""
     if v.phflag == 0:
         return m
-    _check_ported(v)
+    if v.hash_name == "SHAKE256":
+        return hashlib.shake_256(m).digest(64)
     return hashlib.sha512(m).digest()
 
 
@@ -103,7 +101,8 @@ def check_context_rules(v: Variant, context: bytes) -> None:
 
 def decode_core(c: EdwardsCurve, y_limbs, sign):
     """Batched point decode from (y, sign): x = sqrt((y^2 - 1)/(d y^2 - a)).
-    y_limbs: int32[K, N] plain limbs (below 2^255, not yet range-checked);
+    y_limbs: int32[K, N] plain limbs (below 2^(32K), not yet
+    range-checked);
     sign: int32[N] in {0, 1}. Returns (point, ok mask): ok is False where
     y >= p, where x has no root, and where x = 0 with the sign bit set."""
     ctx = c.fp_ctx
@@ -126,7 +125,7 @@ def decode_core(c: EdwardsCurve, y_limbs, sign):
 def verify_core(c: EdwardsCurve, ay, asign, ry, rsign, S, k):
     """Batched verify: S*B == R + k*A  <=>  S*B + k*(-A) == R, compared as
     cross-multiplied projective coordinates. ay, ry: int32[K, N] plain
-    y limbs; asign, rsign: int32[N]; S (as received, below 2^256) and k
+    y limbs; asign, rsign: int32[N]; S (as received, below 2^(32Kq)) and k
     (< q): int32[Kq, N]. Returns the accept mask.
 
     A and R are decoded as ONE batch of 2N lanes: the same values as two
@@ -156,10 +155,16 @@ def parse_verify_inputs(c: EdwardsCurve, v: Variant, pub_keys, sigs):
     a dict of host arrays (y limbs np.uint32[K, N], signs np.int32[N], S
     limbs, the pre-check mask) and the encoded R and A bytes that the
     challenge hashes. A lane whose key or signature has the wrong length
-    is rejected (``pre_ok`` False) and carries zeros. For Ed25519 the 256
-    bits of an encoding are 255 bits of y and the sign, so no high bit can
-    be non-canonical."""
-    _check_ported(v)
+    is rejected (``pre_ok`` False) and carries zeros.
+
+    Each encoding is padded to a whole number of 32-bit words before the
+    word view (Ed448's 57 bytes are 15 words; byte 56 holds the sign in
+    bit 455 and y's bits 448-454). Where y or S does not fit the K limbs
+    the port holds (y >= 2^448 or S >= 2^448 on Ed448), the value is at
+    least p or q, which the reference rejects (y >= p, S >= q): such a
+    lane is rejected here (``pre_ok`` False), never truncated. On Ed25519
+    the 256 bits of an encoding are 255 bits of y and the sign, so no high
+    bit can be out of range."""
     el = v.enc_len
     n = len(sigs)
     pre_ok = np.array([len(s) == 2 * el and len(pk) == el
@@ -167,20 +172,32 @@ def parse_verify_inputs(c: EdwardsCurve, v: Variant, pub_keys, sigs):
     sig_b = b"".join(s if o else bytes(2 * el) for s, o in zip(sigs, pre_ok))
     pub_b = b"".join(pk if o else bytes(el)
                      for pk, o in zip(pub_keys, pre_ok))
-    nw = el // 4
-    sw = np.frombuffer(sig_b, "<u4").reshape(n, 2 * nw).T    # LE words
-    pw = np.frombuffer(pub_b, "<u4").reshape(n, nw).T
+    nw = -(-el // 4)
+    pad = 4 * nw - el
+
+    def words(buf, parts):
+        """parts encodings of el bytes per lane -> LE words [parts*nw, N]."""
+        b = np.frombuffer(buf, np.uint8).reshape(n * parts, el)
+        b = np.concatenate([b, np.zeros((n * parts, pad), np.uint8)], 1)
+        return b.view("<u4").reshape(n, parts * nw).T
+
+    sw, pw = words(sig_b, 2), words(pub_b, 1)
     word, bit = divmod(v.sign_bit, 32)
+    k, kq = c.fp_ctx.k, c.q_ctx.k
 
-    def y_and_sign(words):
-        y = np.array(words, np.uint32)
+    def y_and_sign(w):
+        y = np.array(w, np.uint32)
         y[word] &= np.uint32(~(1 << bit) & 0xFFFFFFFF)
-        return y, ((words[word] >> bit) & 1).astype(np.int32)
+        fits = ~y[k:].any(0)
+        return np.ascontiguousarray(y[:k]), ((w[word] >> bit) & 1).astype(
+            np.int32), fits
 
-    ay, asign = y_and_sign(pw)
-    ry, rsign = y_and_sign(sw[:nw])
+    ay, asign, a_fits = y_and_sign(pw)
+    ry, rsign, r_fits = y_and_sign(sw[:nw])
+    S = sw[nw:]
+    pre_ok &= a_fits & r_fits & ~S[kq:].any(0)
     return {"ay": ay, "asign": asign, "ry": ry, "rsign": rsign,
-            "S": np.ascontiguousarray(sw[nw:]), "pre_ok": pre_ok,
+            "S": np.ascontiguousarray(S[:kq]), "pre_ok": pre_ok,
             "enc_R": [sig_b[2 * el * i:2 * el * i + el] for i in range(n)],
             "pubs": [pub_b[el * i:el * (i + 1)] for i in range(n)]}
 
@@ -201,8 +218,9 @@ def verify_batch(variant_or_curve, pub_keys: list[bytes], msgs: list[bytes],
                  sigs: list[bytes], variant=None, context: bytes = b"",
                  device="cuda") -> np.ndarray:
     """Batched EdDSA verification -> np.bool accept mask. The first
-    argument is a variant name ("ed25519", "ed25519ctx", "ed25519ph") or
-    an Edwards curve (then pure ed25519 unless ``variant`` is given)."""
+    argument is a variant name ("ed25519", "ed25519ctx", "ed25519ph",
+    "ed448", "ed448ph") or an Edwards curve (then pure ed25519 or ed448
+    unless ``variant`` is given)."""
     if isinstance(variant_or_curve, str) and variant is None:
         variant, variant_or_curve = variant_or_curve, None
     if variant is not None:
@@ -212,7 +230,6 @@ def verify_batch(variant_or_curve, pub_keys: list[bytes], msgs: list[bytes],
                      else "ed448"]
     else:
         raise ValueError("pass a variant name or curve")
-    _check_ported(v)
     if not len(pub_keys) == len(msgs) == len(sigs):
         raise ValueError("pub_keys, msgs and sigs differ in length")
     dev = resolve_device(device)

@@ -259,3 +259,108 @@ def test_straus_kernels_match_plain(dev, name):
                            nn.mont_mul(joint[a], got[b], ctx))
     with pytest.raises(ValueError):             # digits differ in nwin
         megamul.straus_mul(c, ptab, du, qtab, dv[:-1].contiguous(), cls)
+
+
+# -- Ed448: kernels 1, 8a, 8b and 7 at K = 14 (a = 1) ----------------------
+
+def _ints448(rng, n, mod):
+    return [int.from_bytes(rng.bytes(64), "big") % mod for _ in range(n)]
+
+
+def _ed448_pairs(c, rng, n, dev):
+    """Edge lanes P + O, O + Q, O + O, P = Q, P = -Q, then random ones."""
+    p = c.fp_ctx.p_int
+    hc = H.EdCurve(p, c.a, c.d, c.gx, c.gy, c.q, c.h)
+    base = [H.ed_base_mul(hc, k) for k in _ints448(rng, 16, c.q)]
+    a_pts = [base[i % 16] for i in range(n)]
+    b_pts = [base[(7 * i + 3) % 16] for i in range(n)]
+    b_pts[0] = a_pts[1] = a_pts[2] = b_pts[2] = (0, 1)
+    b_pts[3] = a_pts[3]
+    b_pts[4] = ((-a_pts[4][0]) % p, a_pts[4][1])
+    return (_ed_extended(c, rng, a_pts, dev),
+            _ed_extended(c, rng, b_pts, dev))
+
+
+@pytest.mark.parametrize("which", ["p", "q"])
+def test_mont_kernels_k14_match_plain(dev, which):
+    c = edwards.get_edwards_curve("ED448")
+    ctx = c.fp_ctx if which == "p" else c.q_ctx
+    assert ctx.k == 14
+    rng = np.random.RandomState(78)
+    m = ctx.p_int
+    n = 4099                                   # ragged edge
+    a = nn.upload(nn.batch_to_limbs([0, 1, m - 1, m - 1]
+                                    + _ints448(rng, n - 4, m), 14), dev)
+    b = nn.upload(nn.batch_to_limbs([m - 1] * 3 + [m - 2]
+                                    + _ints448(rng, n - 4, m), 14), dev)
+    before = dict(mont.launches)
+    assert torch.equal(mont.mont_mul(a, b, ctx), nn.mont_mul(a, b, ctx))
+    assert torch.equal(mont.mont_sqr(a, ctx), nn.mont_sqr(a, ctx))
+    assert mont.launches["mont_mul_k14"] == before["mont_mul_k14"] + 1
+    assert mont.launches["mont_sqr_k14"] == before["mont_sqr_k14"] + 1
+    assert mont.launches["mont_mul"] == before["mont_mul"]
+
+
+def test_ed_kernels_k14_match_plain(dev):
+    c = edwards.get_edwards_curve("ED448")
+    rng = np.random.RandomState(79)
+    A, B = _ed448_pairs(c, rng, 777, dev)
+    before = dict(edpoint.launches)
+    got = edpoint.ed_add(c, A, B)
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, edpoint.ed_add_plain(c, A, B)))
+    got = edpoint.ed_dbl(c, A)
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, edpoint.ed_dbl_plain(c, A)))
+    assert edpoint.launches["ed_add_k14"] == before["ed_add_k14"] + 1
+    assert edpoint.launches["ed_dbl_k14"] == before["ed_dbl_k14"] + 1
+    assert edpoint.launches["ed_add"] == before["ed_add"]
+
+
+def test_ed_windowed_kernel_k14_matches_plain(dev):
+    """Kernel 7 at K = 14: 112 windows, zero, short and full scalars, the
+    identity among the points."""
+    c = edwards.get_edwards_curve("ED448")
+    rng = np.random.RandomState(80)
+    n = 300
+    P, _ = _ed448_pairs(c, rng, n, dev)
+    ms = [0, 1, 2, 1 << 100, 0, c.q - 1] + _ints448(rng, n - 6, c.q)
+    mt = nn.upload(nn.batch_to_limbs(ms, 14), dev)
+    table = scalar_mul._build_mul_table(c, P)
+    digs = scalar_mul._window_digits(mt, c.scalar_bits())
+    assert digs.shape[0] == 112
+    before = megamul.launches["windowed_mul_ed_k14"]
+    got = megamul.windowed_mul(c, table, digs, ExtPoint)
+    want = megamul.windowed_mul_plain(c, table, digs, ExtPoint)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert megamul.launches["windowed_mul_ed_k14"] == before + 1
+
+
+def test_ed_wrappers_refuse_other_k_and_a(dev):
+    """(K = 14, a = -1) and (K = 8, a = 1) raise on the card: the kernels
+    are built for (K = 8, a = -1) and (K = 14, a = 1) only; kernels 8c
+    and 6-ed for K = 8 only."""
+    e448 = edwards.get_edwards_curve("ED448")
+    e25519 = edwards.get_edwards_curve("ED25519")
+    m448 = EdwardsCurve("M1_448", e448.fp_ctx, -1, e448.d, 0, 1, e448.q, 4)
+    a1_8 = EdwardsCurve("A1", e25519.fp_ctx, 1, e25519.d, 0, 1, e25519.q, 8)
+    for cv in (m448, a1_8):
+        one = cv.fp_ctx.from_ints([1, 2, 3], dev)
+        P = ExtPoint(one, one, one, one)
+        with pytest.raises(ValueError):
+            edpoint.ed_add(cv, P, P)
+        with pytest.raises(ValueError):
+            edpoint.ed_dbl(cv, P)
+        digs = torch.zeros((112, 3), dtype=torch.int32, device=dev)
+        tab = torch.zeros((16, 4, cv.fp_ctx.k, 3), dtype=torch.int32,
+                          device=dev)
+        with pytest.raises(ValueError):
+            megamul.windowed_mul(cv, tab, digs, ExtPoint)
+    one = e448.fp_ctx.from_ints([1, 2, 3], dev)
+    P = ExtPoint(one, one, one, one)
+    with pytest.raises(ValueError):                    # 8c: K = 8 only
+        edpoint.ed_dbln_add(e448, P, P, 2)
+    tab = torch.zeros((16, 4, 14, 3), dtype=torch.int32, device=dev)
+    digs = torch.zeros((112, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                    # 6-ed: K = 8 only
+        megamul.straus_mul(e448, tab, digs, tab, digs, ExtPoint)
