@@ -7,10 +7,14 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It builds the port's CUDA kernels from libecc_tpu_torch/csrc with nvcc,
 checks each kernel bitwise against its plain PyTorch version on the card,
-and drives four paths at batch 8192, bytes in:
+and drives these paths at batch 8192, bytes in:
 
-1. batched P-256 ECDSA verification, through verify_batch,
-   verify_batch_async and verify_batches (accept mask out);
+1. batched ECDSA verification on P-256 (K = 8 kernels), P-384 (K = 12,
+   a = -3), BrainpoolP512r1 and GOST512 (K = 16, generic a), through
+   verify_batch, verify_digests_batch, verify_batch_async and
+   verify_batches (accept mask out), with the P-256 and P-384 Wycheproof
+   rows and the P-384 and BrainpoolP512r1 KAT rows under SHA-224/256/
+   384/512 and SHA3-384;
 2. batched Ed25519 verification, through eddsa.verify_batch (accept mask
    out);
 3. batched Ed448 verification (K = 14 kernels, a = 1), through
@@ -40,6 +44,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 BATCH = 8192            # the verify batch of the headline (bench.py:413)
 UNIQUE = 1024           # unique (key, message, signature) tuples, tiled
@@ -74,6 +79,22 @@ ED448_ADD_PRODUCTS = 10                 # add-2008-hwcd: one product more
 STRAUS_PER_WINDOW = (22, 44)            # kernel 6: one more complete add
 ED_STRAUS_PER_WINDOW = (16, 34)         # kernel 6-ed: one more extended add
 JOINT_NDBL = 2                          # the joint Straus step: 2^2*acc + T
+# ECDSA on K = 12 (a = -3) and K = 16 (generic a)
+GENERIC_PER_WINDOW = (30, 34)          # the same for generic a (w = 4)
+# the ECDSA paths: curve -> label (P-256 at K = 8, P-384 at K = 12, the
+# 512-bit curves at K = 16), and the curves with Wycheproof rows
+W_CURVES = {"SECP256R1": "P-256", "SECP384R1": "P-384",
+            "BRAINPOOLP512R1": "BrainpoolP512r1", "GOST512": "GOST512"}
+W_WYCHEPROOF = ("SECP256R1", "SECP384R1")
+# kernels 1-4: base name -> (source at K = 8, at K = 12 and 16, the TPU
+# kernel in libecc_tpu/ops/pallas)
+W_KERNELS = {
+    "mont_mul": ("mont.cu", "mont.cu", "mont.py:297"),
+    "mont_sqr": ("mont.cu", "mont.cu", "mont.py:297"),
+    "point_add": ("point.cu", "point_wide.cu", "point.py:470"),
+    "point_dbl": ("point.cu", "point_wide.cu", "point.py:489"),
+    "windowed_mul": ("windowed.cu", "windowed_wide.cu", "megamul.py:161"),
+}
 VEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                    "vectors")
 
@@ -230,27 +251,28 @@ def main() -> int:
     # 2. build -----------------------------------------------------------
     build.library("mont")
     print(f"build: {build.build_seconds:.1f} s for "
-          f"{sorted(build.build_log) or 'cached libraries'}")
+          f"{sorted(build.build_log) or 'cached libraries'}; each nvcc "
+          "done at (s): " + json.dumps({k_: round(v, 1) for k_, v in
+                                        build.build_file_seconds.items()}))
     for stem, log in sorted(build.build_log.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line \
                     or "Compiling entry" in line:
                 print(f"ptxas[{stem}]: {line.strip()}")
 
-    c = params.get_curve("P-256")
-    pctx, qctx = c.fp_ctx, c.q_ctx
-    p, q = pctx.p_int, c.q
-    wc = H.WCurve(p, c.a, c.b, c.gx, c.gy, q)
     ec = edwards.get_edwards_curve("ED25519")
     ectx = ec.fp_ctx
     ep, eq = ectx.p_int, ec.q
     hc = H.EdCurve(ep, ec.a, ec.d, ec.gx, ec.gy, eq, ec.h)
     rng = np.random.RandomState(2026)
     results = {}
+    reps = BATCH // UNIQUE
+    N = BATCH
 
     def rand_ints(n, mod):
         """n random residues mod `mod` from 30-bit words: 9 words (270
-        bits) for the 256-bit moduli, 16 (480 bits) for Ed448's."""
+        bits) for the 256-bit moduli, up to 18 (540 bits) for the 512-bit
+        ones."""
         words = max(9, -(-(mod.bit_length() + 14) // 30))
         raw = rng.randint(0, 1 << 30, size=(n, words)).astype(object)
         return [int(sum(int(v) << (30 * i) for i, v in enumerate(row)) % mod)
@@ -295,127 +317,6 @@ def main() -> int:
                                          for a, b in zip(t, t[1:])])))
         return ({name: round(statistics.median(r[name] for r in runs), 4)
                  for name in runs[0]}, vals, out)
-
-    # 3. each kernel against its plain version ----------------------------
-    # Kernel 1 under P-256's p and q and under Ed25519's p (the modulus of
-    # its launches on the Ed25519 path), with the edge operands 0, 1, m - 1.
-    for ctx, label in ((pctx, "P-256's p"), (qctx, "P-256's q"),
-                       (ectx, "Ed25519's p")):
-        m = ctx.p_int
-        xs = [0, 1, m - 1, m - 1, 1] + rand_ints(MONT_N - 5, m)
-        ys = [m - 1, m - 1, m - 1, 0, 1] + rand_ints(MONT_N - 5, m)
-        a = nn.upload(nn.batch_to_limbs(xs, ctx.k), dev)
-        b = nn.upload(nn.batch_to_limbs(ys, ctx.k), dev)
-        where = f" under {label}"
-        errs = {"mont_mul": cmp("mont_mul", [mont.mont_mul(a, b, ctx)],
-                                [nn.mont_mul(a, b, ctx)], MONT_N, where),
-                "mont_sqr": cmp("mont_sqr", [mont.mont_sqr(a, ctx)],
-                                [nn.mont_sqr(a, ctx)], MONT_N, where)}
-        if ctx is ectx:
-            ed_check_err = errs
-        rinv = pow(ctx.R, -1, m)
-        got = nn.batch_from_limbs(mont.mont_mul(a, b, ctx)[:, :64])
-        _check(got == [x * y * rinv % m for x, y in zip(xs[:64], ys[:64])],
-               "mont_mul disagrees with Python integers")
-
-    def affine_points(n, uniq=64):
-        ks = [1 + (v % (q - 1)) for v in rand_ints(uniq, q)]
-        pts = [H.ec_base_mul(wc, k_) for k_ in ks]
-        return [pts[i % uniq] for i in range(n)]
-
-    def projective(pts):
-        lams = [1 + v % (p - 1) for v in rand_ints(len(pts), p)]
-        xs, ys, zs = [], [], []
-        for P, lam in zip(pts, lams):
-            if P is None:
-                xs.append(0), ys.append(lam), zs.append(0)
-            else:
-                xs.append(P[0] * lam % p), ys.append(P[1] * lam % p)
-                zs.append(lam)
-        return PrjPoint(pctx.from_ints(xs, dev), pctx.from_ints(ys, dev),
-                        pctx.from_ints(zs, dev))
-
-    A = affine_points(POINT_N)
-    B = affine_points(POINT_N)
-    B[0], A[1] = None, None                             # identity lanes
-    A[2] = B[2] = None
-    B[3] = A[3]                                         # P = Q
-    B[4] = H.ec_neg(wc, A[4])                           # P = -Q
-    PA, PB = projective(A), projective(B)
-    cmp("point_add", point.point_add(c, PA, PB),
-        point.point_add_plain(c, PA, PB), POINT_N)
-    cmp("point_dbl", point.point_dbl(c, PA), point.point_dbl_plain(c, PA),
-        POINT_N)
-
-    def affine_of(P, i):
-        z = pctx.to_ints(P.z[:, i:i + 1])[0]
-        if z == 0:
-            return None
-        zi = pow(z, -1, p)
-        return (pctx.to_ints(P.x[:, i:i + 1])[0] * zi % p,
-                pctx.to_ints(P.y[:, i:i + 1])[0] * zi % p)
-
-    S = point.point_add(c, PA, PB)
-    for i in range(8):
-        _check(affine_of(S, i) == H.ec_add(wc, A[i], B[i]),
-               f"point_add lane {i} disagrees with the host oracle")
-
-    wpts = affine_points(WINDOWED_N)
-    ms = rand_ints(WINDOWED_N, q)
-    ms[0] = ms[1] = 0                                   # all-zero scalars
-    ms[2], ms[3], ms[4] = 1, 5, (1 << 37) + 3           # leading zeros
-    Pw = projective(wpts)
-    mt = nn.upload(nn.batch_to_limbs(ms, qctx.k), dev)
-    table = scalar_mul._build_mul_table(c, Pw)
-    digs = scalar_mul._window_digits(mt, 256)
-    t0 = time.perf_counter()
-    want = megamul.windowed_mul_plain(c, table, digs, PrjPoint)
-    print(f"windowed_mul plain at N={WINDOWED_N}: "
-          f"{time.perf_counter() - t0:.1f} s")
-    got = megamul.windowed_mul(c, table, digs, PrjPoint)
-    cmp("windowed_mul", got, want, WINDOWED_N)
-    for i in range(6):
-        _check(affine_of(got, i) == H.ec_mul(wc, ms[i], wpts[i]),
-               f"windowed_mul lane {i} disagrees with the host oracle")
-
-    # 4. the main path at batch 8192 ------------------------------------
-    t0 = time.perf_counter()
-    privs = [1 + v % (q - 1) for v in rand_ints(UNIQUE, q)]
-    pubs = [H.ec_base_mul(wc, d) for d in privs]
-    msgs = [rng.bytes(32) for _ in range(UNIQUE)]
-    sigs = []
-    for d, msg in zip(privs, msgs):
-        e = H.trunc_msb_mod_q(hashlib.sha256(msg).digest(), q)
-        r, s = H.ecdsa_sign_ref(wc, d, e, 1 + rand_ints(1, q - 1)[0])
-        sigs.append(r.to_bytes(32, "big") + s.to_bytes(32, "big"))
-    reps = BATCH // UNIQUE
-    pubs, msgs, sigs = pubs * reps, msgs * reps, sigs * reps
-    kb = K_.pubkey_batch_from_affine_ints(c, "ECDSA", [P[0] for P in pubs],
-                                          [P[1] for P in pubs])
-    print(f"fixture: {UNIQUE} unique tuples tiled to {BATCH} in "
-          f"{time.perf_counter() - t0:.1f} s")
-
-    bad_m, bad_s = list(msgs), list(sigs)
-    want_bad = np.ones(BATCH, bool)
-    for i in range(0, 10):                              # r + 1
-        r = int.from_bytes(sigs[i][:32], "big") + 1
-        bad_s[i] = r.to_bytes(32, "big") + sigs[i][32:]
-    for i in range(10, 20):                             # s = 0
-        bad_s[i] = sigs[i][:32] + bytes(32)
-    for i in range(20, 30):                             # s = q
-        bad_s[i] = sigs[i][:32] + q.to_bytes(32, "big")
-    for i in range(30, 40):                             # another message
-        bad_m[i] = bytes([msgs[i][0] ^ 0x5A]) + msgs[i][1:]
-    want_bad[:40] = False
-    off = list(range(40, 50))                           # off-curve keys
-    xs = pctx.from_ints([pubs[i][0] for i in off], dev)
-    ys = pctx.from_ints([(pubs[i][1] + 1) % p for i in off], dev)
-    bad_pub = PrjPoint(*[t.clone() for t in kb.pub])
-    bad_pub.x[:, off] = xs
-    bad_pub.y[:, off] = ys
-    kb_off = K_.KeyBatch(curve=c, alg="ECDSA", n=BATCH, pub=bad_pub)
-    want_off = np.ones(BATCH, bool)
-    want_off[off] = False
 
     counts = [mont.launches, point.launches, megamul.launches,
               edpoint.launches]
@@ -477,144 +378,7 @@ def main() -> int:
                 "launches_per_batch": per, "stage_ms": bd,
                 "peak_bytes": peak}, marked
 
-    reset()
-    acc = ecdsa.verify_batch(kb, msgs, sigs)
-    _check(acc.all(), f"verify_batch rejected {int((~acc).sum())} valid lanes")
-    acc = ecdsa.verify_batch(kb, bad_m, bad_s)
-    _check((acc == want_bad).all(), "verify_batch: corrupted lanes wrong")
-    acc = ecdsa.verify_batch(kb_off, msgs, sigs)
-    _check((acc == want_off).all(), "verify_batch: off-curve key lanes wrong")
-    acc = ecdsa.verify_batch_async(kb, msgs, sigs)
-    _check(acc.device.type == "cuda", "verify_batch_async: not a CUDA tensor")
-    _check(bool(acc.all()), "verify_batch_async rejected valid lanes")
-    acc = ecdsa.verify_batch_async(kb, bad_m, bad_s).cpu().numpy()
-    _check((acc == want_bad).all(), "verify_batch_async: corrupted lanes")
-    stream = [(msgs, sigs), (bad_m, bad_s), (msgs, sigs), (bad_m, bad_s)]
-    outs = list(ecdsa.verify_batches(kb, stream, depth=3))
-    expect = [np.ones(BATCH, bool), want_bad] * 2
-    _check(len(outs) == 4 and all((o == w).all()
-                                  for o, w in zip(outs, expect)),
-           "verify_batches: wrong accept masks")
-    main_counts = snapshot()
-    print("main path launches:", json.dumps(main_counts))
-    p256_kernels = ["mont_mul", "mont_sqr", "point_add", "point_dbl",
-                    "windowed_mul"]
-    for name in p256_kernels:
-        _check(main_counts[name] >= 1,
-               f"kernel {name} was not launched on the main path")
-    print("main path: valid lanes accept, corrupted lanes reject "
-          "(verify_batch, verify_batch_async, verify_batches)")
-
-    # Wycheproof P-256 rows, through all three entry points
-    with open(os.path.join(VEC, "wycheproof_subset.jsonl")) as f:
-        rows = [json.loads(x) for x in f]
-    rows = [v for v in rows if v["scheme"] == "ECDSA"
-            and v["curve"] == "SECP256R1"]
-    _check(len(rows) == 36, f"expected 36 P-256 Wycheproof rows, got "
-                            f"{len(rows)}")
-    good = [v for v in rows if len(bytes.fromhex(v["sig"])) == 64]
-    wkb = K_.import_pub_raw(c, "ECDSA", [bytes.fromhex(v["pub"])
-                                         for v in good])
-    wm = [bytes.fromhex(v["msg"]) for v in good]
-    ws = [bytes.fromhex(v["sig"]) for v in good]
-    want_w = np.array([v["result"] == "valid" for v in good])
-    got_w = [ecdsa.verify_batch(wkb, wm, ws),
-             ecdsa.verify_batch_async(wkb, wm, ws).cpu().numpy(),
-             next(iter(ecdsa.verify_batches(wkb, [(wm, ws)])))]
-    for g in got_w:
-        _check((g == want_w).all(), "Wycheproof P-256 rows: wrong results")
-    # The fused bytes-in path takes uniform-length batches of >= 64 lanes:
-    # group the rows by message length and tile each group to 64 lanes.
-    fused_rows = 0
-    for mlen in sorted({len(m_) for m_ in wm}):
-        idx = [i for i, m_ in enumerate(wm) if len(m_) == mlen]
-        idx = idx * -(-64 // len(idx))
-        gkb = K_.import_pub_raw(c, "ECDSA", [bytes.fromhex(good[i]["pub"])
-                                             for i in idx])
-        gm, gs = [wm[i] for i in idx], [ws[i] for i in idx]
-        _check(ecdsa._fused_applicable(gm, gs, 32),
-               f"Wycheproof rows of {mlen}-byte messages: not fused")
-        for g in (ecdsa.verify_batch_async(gkb, gm, gs).cpu().numpy(),
-                  next(iter(ecdsa.verify_batches(gkb, [(gm, gs)])))):
-            _check((g == want_w[idx]).all(),
-                   f"Wycheproof rows of {mlen}-byte messages: wrong results "
-                   "on the fused bytes-in path")
-        fused_rows += len(set(idx))
-    _check(fused_rows == len(good), "Wycheproof rows left out of the fused "
-                                    "check")
-    for v in rows:
-        if len(bytes.fromhex(v["sig"])) != 64:
-            one = K_.import_pub_raw(c, "ECDSA", [bytes.fromhex(v["pub"])])
-            try:
-                ecdsa.verify_batch(one, [bytes.fromhex(v["msg"])],
-                                   [bytes.fromhex(v["sig"])])
-                _fail(f"Wycheproof tcId {v['tcId']}: malformed signature "
-                      "accepted by the API")
-            except ValueError:
-                _check(v["result"] != "valid", "malformed row is valid")
-    print(f"Wycheproof: {len(rows)} P-256 rows give their recorded results "
-          f"({int(want_w.sum())} valid); the {fused_rows} well-formed rows "
-          "also through the fused bytes-in path, tiled to 64 lanes")
-
-    # 5. measurements ---------------------------------------------------
-    # one batch through verify_batch_async (bytes in, accept mask out), the
-    # stage breakdown from its stage marks, and the profiler's busy share
-    p256, marked = time_batch(
-        lambda: ecdsa.verify_batch_async(kb, msgs, sigs),
-        "P-256 ECDSA verify", ["hash", "scalars", "key on curve", "comb",
-                               "table", "windowed", "accept", "return"],
-        lambda acc_: bool(acc_.all()))
-    per_batch = p256["launches_per_batch"]
-
-    nb = 8
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    for o in ecdsa.verify_batches(kb, [(msgs, sigs)] * nb, depth=3):
-        _check(o.all(), "verify_batches rejected valid lanes")
-    dt = time.perf_counter() - h0
-    piped = nb * BATCH / dt
-    print(f"verify_batches {nb} x {BATCH} at depth 3: {dt * 1e3:.1f} ms, "
-          f"{piped:.1f} verifies/s")
-
-    # each kernel at the main path's shapes (N = 8192)
-    N = BATCH
-    a8 = nn.upload(nn.batch_to_limbs(rand_ints(N, p), 8), dev)
-    b8 = nn.upload(nn.batch_to_limbs(rand_ints(N, p), 8), dev)
-    PA8 = PrjPoint(*[t[:, :N].contiguous() for t in PA])
-    PB8 = PrjPoint(*[t[:, :N].contiguous() for t in PB])
-    tab8, digs8 = marked["table"]         # the verify batch's own
-    kern = {
-        "mont_mul": (lambda: mont.mont_mul(a8, b8, pctx),
-                     lambda: nn.mont_mul(a8, b8, pctx), 200, 20,
-                     N * 96, N * FMUL_SLOTS),
-        "mont_sqr": (lambda: mont.mont_sqr(a8, pctx),
-                     lambda: nn.mont_sqr(a8, pctx), 200, 20,
-                     N * 64, N * FSQR_SLOTS),
-        "point_add": (lambda: point.point_add(c, PA8, PB8),
-                      lambda: point.point_add_plain(c, PA8, PB8), 100, 3,
-                      N * 288, N * 14 * FMUL_SLOTS),
-        "point_dbl": (lambda: point.point_dbl(c, PA8),
-                      lambda: point.point_dbl_plain(c, PA8), 100, 3,
-                      N * 192, N * (3 * FSQR_SLOTS + 10 * FMUL_SLOTS)),
-        "windowed_mul": (lambda: megamul.windowed_mul(c, tab8, digs8,
-                                                      PrjPoint),
-                         lambda: megamul.windowed_mul_plain(c, tab8, digs8,
-                                                            PrjPoint), 10, 1,
-                         N * (16 * 96 + 64 * 4 + 96),
-                         N * 64 * (PER_WINDOW[0] * FSQR_SLOTS
-                                   + PER_WINDOW[1] * FMUL_SLOTS)),
-    }
-    source = {"mont_mul": "mont.cu", "mont_sqr": "mont.cu",
-              "point_add": "point.cu", "point_dbl": "point.cu",
-              "windowed_mul": "windowed.cu"}
-    replaces = {
-        "mont_mul": "libecc_tpu/ops/pallas/mont.py:297",
-        "mont_sqr": "libecc_tpu/ops/pallas/mont.py:297",
-        "point_add": "libecc_tpu/ops/pallas/point.py:470",
-        "point_dbl": "libecc_tpu/ops/pallas/point.py:489",
-        "windowed_mul": "libecc_tpu/ops/pallas/megamul.py:161",
-    }
-    lines = []
+    source, replaces, lines = {}, {}, []
 
     def measure(name, kfn, pfn, kreps, preps, nbytes, slots, n):
         """Time a kernel and its plain version on the same inputs, hold the
@@ -644,10 +408,414 @@ def main() -> int:
                 "max_abs_err": results[name]["max_abs_err"],
                 "library_ms": None})
 
-    time_kernels(kern, main_counts, per_batch, "P-256 ECDSA verify")
+    def check_mont(ctx, label, n=MONT_N):
+        """Kernel 1 under one modulus m against its plain version, bitwise,
+        the edge operands 0, 1, m - 2 and m - 1 first, and its first lanes
+        against Python integers. Returns each product's difference."""
+        m, k_ = ctx.p_int, ctx.k
+        xs = [0, 1, m - 1, m - 1, 1, m - 2] + rand_ints(n - 6, m)
+        ys = [m - 1, m - 1, m - 1, 0, 1, m - 1] + rand_ints(n - 6, m)
+        a = nn.upload(nn.batch_to_limbs(xs, k_), dev)
+        b = nn.upload(nn.batch_to_limbs(ys, k_), dev)
+        where = f" under {label}"
+        errs = {"mont_mul": cmp(build.kernel_name("mont_mul", k_),
+                                [mont.mont_mul(a, b, ctx)],
+                                [nn.mont_mul(a, b, ctx)], n, where),
+                "mont_sqr": cmp(build.kernel_name("mont_sqr", k_),
+                                [mont.mont_sqr(a, ctx)],
+                                [nn.mont_sqr(a, ctx)], n, where)}
+        rinv = pow(ctx.R, -1, m)
+        got = nn.batch_from_limbs(mont.mont_mul(a, b, ctx)[:, :64])
+        _check(got == [x * y * rinv % m for x, y in zip(xs[:64], ys[:64])],
+               f"kernel 1 at K = {k_}{where} disagrees with Python integers")
+        return errs
 
-    # 6. the Ed25519 path: kernels 8a, 8b and 7 against their plain
-    # versions, then eddsa.verify_batch at batch 8192 -----------------------
+    # 3. ECDSA verify on the short-Weierstrass curves: P-256 (K = 8,
+    # a = -3), P-384 (K = 12, a = -3), BrainpoolP512r1 and GOST512 (K = 16,
+    # generic a) ----------------------------------------------------------
+    def w_names(k_):
+        """The names of kernels 1-4 at K = k_ in the launch counts."""
+        return {base: (megamul._KERNELS[(k_, "w", 1)][0]
+                       if base == "windowed_mul"
+                       else build.kernel_name(base, k_))
+                for base in W_KERNELS}
+
+    def w_points(cv, cw, n, uniq=64):
+        """n affine points of cv, uniq distinct ones repeated."""
+        pts = [H.ec_base_mul(cw, 1 + v % (cv.q - 1))
+               for v in rand_ints(uniq, cv.q)]
+        return [pts[i % uniq] for i in range(n)]
+
+    def projective(cv, pts):
+        """Affine points (None: the identity) -> PrjPoint on the card, each
+        lane scaled by a random lambda."""
+        pc = cv.fp_ctx.p_int
+        lams = [1 + v % (pc - 1) for v in rand_ints(len(pts), pc)]
+        cols = [[], [], []]
+        for P_, lam in zip(pts, lams):
+            for col, v in zip(cols, (0, lam, 0) if P_ is None else
+                              (P_[0] * lam, P_[1] * lam, lam)):
+                col.append(v % pc)
+        return PrjPoint(*[cv.fp_ctx.from_ints(col, dev) for col in cols])
+
+    def affine_of(cv, P, i):
+        ctx_, pc = cv.fp_ctx, cv.fp_ctx.p_int
+        z = ctx_.to_ints(P.z[:, i:i + 1])[0]
+        if z == 0:
+            return None
+        zi = pow(z, -1, pc)
+        return (ctx_.to_ints(P.x[:, i:i + 1])[0] * zi % pc,
+                ctx_.to_ints(P.y[:, i:i + 1])[0] * zi % pc)
+
+    def check_w_kernels(cv, cw, label):
+        """Kernels 1-4 of one curve against their plain versions, bitwise,
+        and their first lanes against the host oracle: kernel 1 under p and
+        q; kernels 2 and 3 with the lanes P + O, O + Q, O + O, P = Q and
+        P = -Q; kernel 4 with the window edge scalars, two short scalars
+        and the identity on lane 7. Returns the point pairs (affine A, B
+        and projective PA, PB) of kernels 2 and 3."""
+        names = w_names(cv.fp_ctx.k)
+        check_mont(cv.fp_ctx, f"{label}'s p")
+        check_mont(cv.q_ctx, f"{label}'s q")
+        A, B = w_points(cv, cw, POINT_N), w_points(cv, cw, POINT_N)
+        B[0], A[1] = None, None                         # identity lanes
+        A[2] = B[2] = None
+        B[3] = A[3]                                     # P = Q
+        B[4] = H.ec_neg(cw, A[4])                       # P = -Q
+        PA, PB = projective(cv, A), projective(cv, B)
+        S, D = point.point_add(cv, PA, PB), point.point_dbl(cv, PA)
+        cmp(names["point_add"], S, point.point_add_plain(cv, PA, PB),
+            POINT_N, f" ({label})")
+        cmp(names["point_dbl"], D, point.point_dbl_plain(cv, PA), POINT_N,
+            f" ({label})")
+        for i in range(8):
+            _check(affine_of(cv, S, i) == H.ec_add(cw, A[i], B[i]),
+                   f"{names['point_add']} ({label}) lane {i} disagrees with "
+                   "the host oracle")
+            _check(affine_of(cv, D, i) == H.ec_add(cw, A[i], A[i]),
+                   f"{names['point_dbl']} ({label}) lane {i} disagrees with "
+                   "the host oracle")
+        wpts = w_points(cv, cw, WINDOWED_N)
+        wpts[7] = None
+        ms = H.window_edge_scalars(cv.q) + [5, (1 << 37) + 3]
+        ms += rand_ints(WINDOWED_N - len(ms), cv.q)
+        table = scalar_mul._build_mul_table(cv, projective(cv, wpts))
+        digs = scalar_mul._window_digits(
+            nn.upload(nn.batch_to_limbs(ms, cv.q_ctx.k), dev),
+            cv.scalar_bits())
+        name = names["windowed_mul"]
+        t0 = time.perf_counter()
+        want = megamul.windowed_mul_plain(cv, table, digs, PrjPoint)
+        print(f"{name} plain ({label}) at N={WINDOWED_N}: "
+              f"{time.perf_counter() - t0:.1f} s")
+        got = megamul.windowed_mul(cv, table, digs, PrjPoint)
+        cmp(name, got, want, WINDOWED_N, f" ({label}, {digs.shape[0]} "
+                                         "windows)")
+        for i in range(8):
+            _check(affine_of(cv, got, i) == H.ec_mul(cw, ms[i], wpts[i]),
+                   f"{name} ({label}) lane {i} disagrees with the host "
+                   "oracle")
+        return A, B, PA, PB
+
+    def ecdsa_fixture(cv, cw, label):
+        """UNIQUE signatures from the host signer (SHA-256 of 32-byte
+        messages) tiled to the batch, their key batch, and the corrupted
+        batch: r + 1, s = 0, s = q, another message, r = q, and r below
+        p - q (the r + q candidate is tried and rejects) on lanes 0-59,
+        and a key batch with off-curve keys on lanes 60-69."""
+        qv, pc = cv.q, cv.fp_ctx.p_int
+        nbq = (qv.bit_length() + 7) // 8
+        t0 = time.perf_counter()
+        ds = [1 + v % (qv - 1) for v in rand_ints(UNIQUE, qv)]
+        pubs = [H.ec_base_mul(cw, d) for d in ds]
+        msgs = [rng.bytes(32) for _ in range(UNIQUE)]
+        sigs = []
+        for d, msg in zip(ds, msgs):
+            e = H.trunc_msb_mod_q(hashlib.sha256(msg).digest(), qv)
+            r, s = H.ecdsa_sign_ref(cw, d, e, 1 + rand_ints(1, qv - 1)[0])
+            sigs.append(r.to_bytes(nbq, "big") + s.to_bytes(nbq, "big"))
+        pubs, msgs, sigs = pubs * reps, msgs * reps, sigs * reps
+        kb = K_.pubkey_batch_from_affine_ints(
+            cv, "ECDSA", [P_[0] for P_ in pubs], [P_[1] for P_ in pubs])
+        print(f"{label} fixture: {UNIQUE} unique host signatures tiled to "
+              f"{BATCH} in {time.perf_counter() - t0:.1f} s")
+        bad_m, bad_s = list(msgs), list(sigs)
+
+        def put(i, r=None, s=None):
+            r = int.from_bytes(sigs[i][:nbq], "big") if r is None else r
+            s = int.from_bytes(sigs[i][nbq:], "big") if s is None else s
+            bad_s[i] = r.to_bytes(nbq, "big") + s.to_bytes(nbq, "big")
+
+        for i in range(0, 10):                          # r + 1
+            put(i, r=int.from_bytes(sigs[i][:nbq], "big") + 1)
+        for i in range(10, 20):                         # s = 0
+            put(i, s=0)
+        for i in range(20, 30):                         # s = q
+            put(i, s=qv)
+        for i in range(30, 40):                         # another message
+            bad_m[i] = bytes([msgs[i][0] ^ 0x5A]) + msgs[i][1:]
+        for i in range(40, 50):                         # r = q
+            put(i, r=qv)
+        for i in range(50, 60):          # r < p - q: the r + q candidate
+            put(i, r=12345 + i)          # is tried and rejects
+        want_bad = np.ones(BATCH, bool)
+        want_bad[:60] = False
+        off = list(range(60, 70))                       # off-curve keys
+        bad_pub = PrjPoint(*[t.clone() for t in kb.pub])
+        bad_pub.y[:, off] = cv.fp_ctx.from_ints(
+            [(pubs[i][1] + 1) % pc for i in off], dev)
+        want_off = np.ones(BATCH, bool)
+        want_off[off] = False
+        return SimpleNamespace(
+            kb=kb, msgs=msgs, sigs=sigs, bad_m=bad_m, bad_s=bad_s,
+            want_bad=want_bad, want_off=want_off,
+            kb_off=K_.KeyBatch(curve=cv, alg="ECDSA", n=BATCH, pub=bad_pub))
+
+    def ecdsa_entry_points(cv, fx, label):
+        """The four ECDSA entry points on the valid, the corrupted and the
+        off-curve batches, the counts set to 0 first. Returns the launches
+        of this run; each of kernels 1-4 must be among them."""
+        reset()
+        acc = ecdsa.verify_batch(fx.kb, fx.msgs, fx.sigs)
+        _check(acc.all(), f"{label}: verify_batch rejected "
+                          f"{int((~acc).sum())} valid lanes")
+        acc = ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs)
+        _check(acc.device.type == "cuda" and bool(acc.all()),
+               f"{label}: verify_batch_async rejected valid lanes")
+        bad_digs = [hashlib.sha256(m_).digest() for m_ in fx.bad_m]
+        for what, acc, want in (
+                ("verify_batch", ecdsa.verify_batch(fx.kb, fx.bad_m,
+                                                    fx.bad_s), fx.want_bad),
+                ("verify_batch_async", ecdsa.verify_batch_async(
+                    fx.kb, fx.bad_m, fx.bad_s).cpu().numpy(), fx.want_bad),
+                ("verify_digests_batch", ecdsa.verify_digests_batch(
+                    fx.kb, bad_digs, fx.bad_s), fx.want_bad),
+                ("verify_batch (off-curve keys)", ecdsa.verify_batch(
+                    fx.kb_off, fx.msgs, fx.sigs), fx.want_off)):
+            _check((acc == want).all(),
+                   f"{label}: {what}: corrupted lanes wrong "
+                   f"({np.flatnonzero(acc != want)[:20].tolist()})")
+        stream = [(fx.msgs, fx.sigs), (fx.bad_m, fx.bad_s)] * 2
+        outs = list(ecdsa.verify_batches(fx.kb, stream, depth=3))
+        expect = [np.ones(BATCH, bool), fx.want_bad] * 2
+        _check(len(outs) == 4 and all((o == w).all()
+                                      for o, w in zip(outs, expect)),
+               f"{label}: verify_batches: wrong accept masks")
+        path = snapshot()
+        print(f"{label} path launches:",
+              json.dumps({k_: v for k_, v in path.items() if v}))
+        for name in w_names(cv.fp_ctx.k).values():
+            _check(path[name] >= 1,
+                   f"kernel {name} was not launched on the {label} path")
+        print(f"{label} path: valid lanes accept; r + 1, s = 0, s = q, "
+              "another message, r = q, r < p - q and off-curve keys reject "
+              "(verify_batch, verify_batch_async, verify_digests_batch, "
+              "verify_batches)")
+        return path
+
+    def wycheproof_ecdsa(cv, cname, label):
+        """The curve's 36 Wycheproof ECDSA rows (SHA-256) through
+        verify_batch, verify_batch_async and verify_batches; the
+        well-formed ones also through the fused bytes-in path, grouped by
+        message length and tiled to 64 lanes; the malformed ones raise
+        ValueError."""
+        nb = (cv.q.bit_length() + 7) // 8
+        with open(os.path.join(VEC, "wycheproof_subset.jsonl")) as f:
+            rows = [v for v in map(json.loads, f)
+                    if v["scheme"] == "ECDSA" and v["curve"] == cname]
+        _check(len(rows) == 36, f"expected 36 {label} Wycheproof rows, got "
+                                f"{len(rows)}")
+        good = [v for v in rows if len(bytes.fromhex(v["sig"])) == 2 * nb]
+        wkb = K_.import_pub_raw(cv, "ECDSA", [bytes.fromhex(v["pub"])
+                                              for v in good])
+        wm = [bytes.fromhex(v["msg"]) for v in good]
+        ws = [bytes.fromhex(v["sig"]) for v in good]
+        want_w = np.array([v["result"] == "valid" for v in good])
+        for g in (ecdsa.verify_batch(wkb, wm, ws),
+                  ecdsa.verify_batch_async(wkb, wm, ws).cpu().numpy(),
+                  next(iter(ecdsa.verify_batches(wkb, [(wm, ws)])))):
+            _check((g == want_w).all(),
+                   f"Wycheproof {label} rows: wrong results")
+        fused_rows = 0
+        for mlen in sorted({len(m_) for m_ in wm}):
+            idx = [i for i, m_ in enumerate(wm) if len(m_) == mlen]
+            idx = idx * -(-64 // len(idx))
+            gkb = K_.import_pub_raw(cv, "ECDSA", [
+                bytes.fromhex(good[i]["pub"]) for i in idx])
+            gm, gs = [wm[i] for i in idx], [ws[i] for i in idx]
+            _check(ecdsa._fused_applicable(gm, gs, nb),
+                   f"Wycheproof rows of {mlen}-byte messages: not fused")
+            for g in (ecdsa.verify_batch_async(gkb, gm, gs).cpu().numpy(),
+                      next(iter(ecdsa.verify_batches(gkb, [(gm, gs)])))):
+                _check((g == want_w[idx]).all(),
+                       f"Wycheproof {label} rows of {mlen}-byte messages: "
+                       "wrong results on the fused bytes-in path")
+            fused_rows += len(set(idx))
+        _check(fused_rows == len(good), "Wycheproof rows left out of the "
+                                        "fused check")
+        for v in rows:
+            if v in good:
+                continue
+            one = K_.import_pub_raw(cv, "ECDSA", [bytes.fromhex(v["pub"])])
+            try:
+                ecdsa.verify_batch(one, [bytes.fromhex(v["msg"])],
+                                   [bytes.fromhex(v["sig"])])
+                _fail(f"Wycheproof tcId {v['tcId']}: malformed signature "
+                      "accepted by the API")
+            except ValueError:
+                _check(v["result"] != "valid", "malformed row is valid")
+        print(f"Wycheproof: {len(rows)} {label} rows give their recorded "
+              f"results ({int(want_w.sum())} valid); the {fused_rows} "
+              "well-formed rows also through the fused bytes-in path, "
+              "tiled to 64 lanes")
+
+    def w_kern(cv, PA, PB, marked):
+        """Kernels 1-4 of a curve at its path's shapes (N = 8192): kernel 1
+        on random operands, 2 and 3 on the edge lanes, 4 on the verify
+        batch's own table and digits. Each entry: the kernel, its plain
+        version, their repetitions, and the bytes and multiply-add slots
+        of the work."""
+        ctx_, k_ = cv.fp_ctx, cv.fp_ctx.k
+        fe, fmul, fsqr = 4 * k_, fmul_slots(k_), fsqr_slots(k_)
+        # per window (squares, products); an add's and a double's products
+        per_win = PER_WINDOW if cv.a_is_m3 else GENERIC_PER_WINDOW
+        add_mu, dbl_mu = (14, 10) if cv.a_is_m3 else (18, 14)
+        a_ = nn.upload(nn.batch_to_limbs(rand_ints(N, ctx_.p_int), k_), dev)
+        b_ = nn.upload(nn.batch_to_limbs(rand_ints(N, ctx_.p_int), k_), dev)
+        tab, digs = marked["table"]
+        nwin = digs.shape[0]
+        names = w_names(k_)
+        return {
+            names["mont_mul"]: (lambda: mont.mont_mul(a_, b_, ctx_),
+                                lambda: nn.mont_mul(a_, b_, ctx_), 200, 20,
+                                N * 3 * fe, N * fmul),
+            names["mont_sqr"]: (lambda: mont.mont_sqr(a_, ctx_),
+                                lambda: nn.mont_sqr(a_, ctx_), 200, 20,
+                                N * 2 * fe, N * fsqr),
+            names["point_add"]: (lambda: point.point_add(cv, PA, PB),
+                                 lambda: point.point_add_plain(cv, PA, PB),
+                                 100, 3, N * 9 * fe, N * add_mu * fmul),
+            names["point_dbl"]: (lambda: point.point_dbl(cv, PA),
+                                 lambda: point.point_dbl_plain(cv, PA),
+                                 100, 3, N * 6 * fe,
+                                 N * (3 * fsqr + dbl_mu * fmul)),
+            names["windowed_mul"]: (
+                lambda: megamul.windowed_mul(cv, tab, digs, PrjPoint),
+                lambda: megamul.windowed_mul_plain(cv, tab, digs, PrjPoint),
+                5, 1, N * (16 * 3 * fe + nwin * 4 + 3 * fe),
+                N * nwin * (per_win[0] * fsqr + per_win[1] * fmul)),
+        }
+
+    # Per curve: its comb of G (built once per process), kernels 1-4
+    # against their plain versions, the host-signed fixture, the entry
+    # points on valid and corrupted batches with the path's own launch
+    # counts, the Wycheproof rows where there are some, the batch's
+    # measurements (verify_batch_async, bytes in, accept mask out: its
+    # stage breakdown from the stage marks and the profiler's busy share)
+    # and each kernel at the path's shapes. GOST512 runs BrainpoolP512r1's
+    # K = 16 instances: their rows are timed on BrainpoolP512r1's path and
+    # carry GOST512's launches beside.
+    w_curves, w_counts, w_report = {}, {}, {}
+    for cname, label in W_CURVES.items():
+        cv = params.get_curve(cname)
+        cw = H.WCurve(cv.fp_ctx.p_int, cv.a, cv.b, cv.gx, cv.gy, cv.q, cv.h)
+        t0 = time.perf_counter()
+        comb_ = scalar_mul._comb_table_dev(cv, cv.scalar_bits(), dev)
+        comb_s = time.perf_counter() - t0
+        comb_bytes = comb_.numel() * comb_.element_size()
+        print(f"{label} comb: {comb_.shape[0]} windows x 256 entries, "
+              f"{comb_bytes} bytes on the device, first build {comb_s:.2f} s "
+              "(cached for the process)")
+        A, B, PA, PB = check_w_kernels(cv, cw, label)
+        w_curves[cname] = (cv, cw, A, B, PA, PB)
+        fx = ecdsa_fixture(cv, cw, label)
+        w_counts[cname] = ecdsa_entry_points(cv, fx, label)
+        if cname in W_WYCHEPROOF:
+            wycheproof_ecdsa(cv, cname, label)
+        rep, marked = time_batch(
+            lambda: ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs),
+            f"{label} ECDSA verify", ["hash", "scalars", "key on curve",
+                                      "comb", "table", "windowed", "accept",
+                                      "return"],
+            lambda acc_: bool(acc_.all()))
+        rep["comb_bytes"] = comb_bytes
+        rep["comb_first_build_s"] = round(comb_s, 3)
+        w_report[cname] = rep
+        if cname == "SECP256R1":
+            nb = 8
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            for o in ecdsa.verify_batches(fx.kb, [(fx.msgs, fx.sigs)] * nb,
+                                          depth=3):
+                _check(o.all(), "verify_batches rejected valid lanes")
+            dt = time.perf_counter() - h0
+            piped = nb * BATCH / dt
+            print(f"verify_batches {nb} x {BATCH} at depth 3: "
+                  f"{dt * 1e3:.1f} ms, {piped:.1f} verifies/s")
+        if cname == "GOST512":
+            continue
+        for base, name in w_names(cv.fp_ctx.k).items():
+            src8, src_wide, tpu = W_KERNELS[base]
+            source[name] = src8 if cv.fp_ctx.k == 8 else src_wide
+            replaces[name] = f"libecc_tpu/ops/pallas/{tpu}"
+        time_kernels(w_kern(cv, PA, PB, marked), w_counts[cname],
+                     rep["launches_per_batch"], f"{label} ECDSA verify")
+    for row in lines:
+        if row["name"] in w_names(16).values():
+            # the large-K body backend these instances stand for
+            row["also_replaces"] = "libecc_tpu/ops/pallas/rows.py:129"
+            row["gost512_launches"] = w_counts["GOST512"][row["name"]]
+    print("ECDSA verify: kernels 1-4 at K = 8 (P-256), K = 12 (P-384) and "
+          "K = 16 (BrainpoolP512r1 and GOST512) are bitwise equal to their "
+          "plain versions and agree with the host oracle")
+
+    # the KAT rows on the card: the P-384 and BrainpoolP512r1 ECDSA and
+    # DECDSA rows under every hash they name
+    kat_groups = {}
+    with open(os.path.join(VEC, "kats_full.jsonl")) as f:
+        for r in map(json.loads, f):
+            if r.get("alg") in ("ECDSA", "DECDSA") and r.get("curve") in (
+                    "SECP384R1", "BRAINPOOLP512R1"):
+                kat_groups.setdefault((r["curve"], r["hash"]), []).append(
+                    (bytes.fromhex(r["pub"]), bytes.fromhex(r["msg_hex"]),
+                     bytes.fromhex(r["sig"])))
+    with open(os.path.join(VEC, "sig_kats.jsonl")) as f:
+        for r in map(json.loads, f):
+            if r["alg"] in ("ECDSA", "DECDSA") and r["curve"] in (
+                    "SECP384R1", "BRAINPOOLP512R1"):
+                kat_groups.setdefault((r["curve"], r["hash"]), []).append(
+                    (bytes.fromhex(r["pub"]), r["msg"].encode(),
+                     bytes.fromhex(r["sig"])))
+    n_kat = 0
+    for (cname, hname), krows in sorted(kat_groups.items()):
+        cv = w_curves[cname][0]
+        pc = cv.fp_ctx.p_int
+        xs_, ys_, ms_, ss_, want_ = [], [], [], [], []
+        for pub, msg, sig in krows:
+            nbp = len(pub) // 3
+            X, Y, Z = [int.from_bytes(pub[nbp * i:nbp * (i + 1)], "big")
+                       for i in range(3)]
+            zi = pow(Z, -1, pc)
+            xs_ += [X * zi % pc] * 3
+            ys_ += [Y * zi % pc] * 3
+            ms_ += [msg, msg + b"x", msg]
+            ss_ += [sig, sig, bytes([sig[0] ^ 1]) + sig[1:]]
+            want_ += [True, False, False]
+        kbk = K_.pubkey_batch_from_affine_ints(cv, "ECDSA", xs_, ys_)
+        acc = ecdsa.verify_batch(kbk, ms_, ss_, hname)
+        _check(acc.tolist() == want_, f"KAT rows {cname} {hname}: wrong "
+                                      f"accept mask {acc.tolist()}")
+        n_kat += len(krows)
+    print(f"ECDSA KATs: {n_kat} ECDSA / DECDSA rows of P-384 and "
+          f"BrainpoolP512r1 under {sorted({h for _, h in kat_groups})} "
+          "accept, and reject with another message or a flipped bit")
+    c, wc, A, B, PA, PB = w_curves["SECP256R1"]
+    q = c.q
+
+    # 4. the Ed25519 path: kernels 1 (under p = 2^255 - 19), 8a, 8b and 7
+    # against their plain versions, then eddsa.verify_batch at batch 8192 --
+    ed_check_err = check_mont(ectx, "Ed25519's p")
+
     def ed_points(n, uniq=64):
         pts = [H.ed_base_mul(hc, v % eq) for v in rand_ints(uniq, eq)]
         return [pts[i % uniq] for i in range(n)]
@@ -844,7 +1012,7 @@ def main() -> int:
                               "launches_per_batch": e_per_batch[name], **m}
             row["max_abs_err"] = results[name]["max_abs_err"]
 
-    # 7. the Ed448 path (K = 14, a = 1): kernels 1, 8a, 8b and 7 at K = 14
+    # 5. the Ed448 path (K = 14, a = 1): kernels 1, 8a, 8b and 7 at K = 14
     # against their plain versions, then eddsa.verify_batch("ed448") at
     # batch 8192 -----------------------------------------------------------
     x4 = edwards.get_edwards_curve("ED448")
@@ -853,20 +1021,9 @@ def main() -> int:
     hx = H.EdCurve(xp, x4.a, x4.d, x4.gx, x4.gy, xq, x4.h)
     fmul14, fsqr14 = fmul_slots(k14), fsqr_slots(k14)
     # kernel 1 under p = 2^448 - 2^224 - 1 (top limb 0xFFFFFFFF) at the
-    # decode's width, edge operands 0, 1, p - 1 first
+    # decode's width
     xn = 2 * BATCH
-    xs_ = [0, 1, xp - 1, xp - 1, 1] + rand_ints(xn - 5, xp)
-    ys_ = [xp - 1, xp - 1, xp - 1, 0, 1] + rand_ints(xn - 5, xp)
-    a14 = nn.upload(nn.batch_to_limbs(xs_, k14), dev)
-    b14 = nn.upload(nn.batch_to_limbs(ys_, k14), dev)
-    cmp("mont_mul_k14", [mont.mont_mul(a14, b14, xctx)],
-        [nn.mont_mul(a14, b14, xctx)], xn, " under Ed448's p")
-    cmp("mont_sqr_k14", [mont.mont_sqr(a14, xctx)], [nn.mont_sqr(a14, xctx)],
-        xn, " under Ed448's p")
-    rinv = pow(xctx.R, -1, xp)
-    got = nn.batch_from_limbs(mont.mont_mul(a14, b14, xctx)[:, :64])
-    _check(got == [x * y * rinv % xp for x, y in zip(xs_[:64], ys_[:64])],
-           "mont_mul_k14 disagrees with Python integers")
+    check_mont(xctx, "Ed448's p", xn)
 
     def x_points(n, uniq=64):
         pts = [H.ed_base_mul(hx, v) for v in rand_ints(uniq, xq)]
@@ -1082,7 +1239,7 @@ def main() -> int:
             "max_abs_err": results[name]["max_abs_err"],
             "library_ms": None})
 
-    # 8. batch verification: kernels 5, 8c, 6 and 6-ed against their plain
+    # 6. batch verification: kernels 5, 8c, 6 and 6-ed against their plain
     # versions, then the three batch entry points at 8192 signatures ------
     k1 = params.get_curve("SECP256K1")
     k1w = H.WCurve(k1.fp_ctx.p_int, k1.a, k1.b, k1.gx, k1.gy, k1.q)
@@ -1094,7 +1251,7 @@ def main() -> int:
     G4 = point.point_dbln_add(c, PA, PB, 4)
     E4 = edpoint.ed_dbln_add(ec, XA, XB, 4)
     for i in range(8):
-        _check(affine_of(G4, i) == H.ec_add(wc, H.ec_mul(wc, 16, A[i]), B[i]),
+        _check(affine_of(c, G4, i) == H.ec_add(wc, H.ec_mul(wc, 16, A[i]), B[i]),
                f"point_dbln_add lane {i} disagrees with the host oracle")
         _check(ed_affine_of(E4, i) == H.ed_add(hc, H.ed_mul(hc, 16, EA[i]),
                                                  EB[i]),
@@ -1125,7 +1282,7 @@ def main() -> int:
         straus_out[name] = megamul.straus_mul(cv, *tabs, cls)
         cmp(name, straus_out[name], want, POINT_N)
     for i in range(6):
-        _check(affine_of(straus_out["straus_mul"], i) == H.ec_add(
+        _check(affine_of(c, straus_out["straus_mul"], i) == H.ec_add(
             wc, H.ec_mul(wc, su[i], A[i]), H.ec_mul(wc, sv[i], B[i])),
             f"straus_mul lane {i} disagrees with the host oracle")
         _check(ed_affine_of(straus_out["straus_mul_ed"], i) == H.ed_add(
@@ -1290,8 +1447,8 @@ def main() -> int:
     etabs = bv_marked["ed25519"]["table"]
     joint_kern = {
         "point_dbln_add": (
-            lambda: point.point_dbln_add(c, PA8, PB8, JOINT_NDBL),
-            lambda: point.point_dbln_add_plain(c, PA8, PB8, JOINT_NDBL),
+            lambda: point.point_dbln_add(c, PA, PB, JOINT_NDBL),
+            lambda: point.point_dbln_add_plain(c, PA, PB, JOINT_NDBL),
             100, 3, N * 288,
             N * ((2 + 5 * JOINT_NDBL) * FSQR_SLOTS
                  + (18 + 3 * JOINT_NDBL) * FMUL_SLOTS)),
@@ -1347,12 +1504,15 @@ def main() -> int:
         name: rated(rep, "signatures_per_s")
         for name, rep in bv_report.items()}}))
     print(json.dumps({"verify": {
-        **rated(p256, "verifies_per_s"),
+        **rated(w_report["SECP256R1"], "verifies_per_s"),
         "pipelined_verifies_per_s": round(piped, 1)}}))
     print(json.dumps({"verify_ed25519": rated(ed25519, "verifies_per_s")}))
     print(json.dumps({"verify_ed448": {
         **rated(ed448, "verifies_per_s"), "comb_bytes": comb_bytes,
         "comb_first_build_s": round(comb_s, 3)}}))
+    print(json.dumps({"verify_wide": {
+        name: rated(rep, "verifies_per_s")
+        for name, rep in w_report.items() if name != "SECP256R1"}}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

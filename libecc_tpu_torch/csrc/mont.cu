@@ -1,13 +1,17 @@
 // Kernel 1: batched Montgomery multiply and square, built for K = 8
-// (256-bit moduli) and K = 14 (448-bit: Ed448's p and q).
+// (256-bit moduli), K = 12 (384-bit: P-384), K = 14 (448-bit: Ed448's p
+// and q) and K = 16 (512-bit: BrainpoolP512r1/t1, GOST512 and the other
+// 512-bit curves).
 //
 // Replaces the TPU kernel libecc_tpu/ops/pallas/mont.py:_build -> call
 // (pallas_call at :297; public mont_mul_relaxed :323, mont_sqr_relaxed
 // :328; body _mont_body_refs :115). The K = 14 instance also stands for
 // libecc_tpu/ops/pallas/rows.py:RowOps (:129; mul, sqr, _redc), the O(K)
 // body those TPU kernels switch to when K > 30 (Ed448 is K = 32 limbs of
-// 15 bits there): on Hopper a 448-bit product is the same template at
-// K = 14, not a code path of its own.
+// 15 bits there, the 512-bit curves K = 37), and so does the K = 16
+// instance: on Hopper a 448- or 512-bit product is the same template at
+// K = 14 or 16, not a code path of its own. P-384 (K = 28 in JAX) runs
+// the tile backend there; here it is the template at K = 12.
 //
 // Bound on the H100: integer-multiply issue and memory are close. One
 // product is 2K^2 + K 32-bit multiplies (K^2 + K(K+1)/2 + K for the
@@ -73,30 +77,24 @@ int launch_sqr(const FieldCtx<K>* f, const uint32_t* a, uint32_t* out,
 
 }  // namespace ecc
 
-// One pair of entry points per limb count: K = 8 (256-bit moduli) and
-// K = 14 (448-bit, Ed448's p and q).
+// One pair of entry points per limb count: K = 8 (256-bit moduli), K = 12
+// (384-bit), K = 14 (448-bit, Ed448's p and q) and K = 16 (512-bit).
 extern "C" {
 
-int mont_mul_k8(const ecc::FieldCtx<8>* f, const uint32_t* a,
-                const uint32_t* b, uint32_t* out, long long n,
-                void* stream) {
-  return ecc::launch_mul<8>(f, a, b, out, n, stream);
-}
+#define ECC_MONT_ENTRY_POINTS(K)                                           \
+  int mont_mul_k##K(const ecc::FieldCtx<K>* f, const uint32_t* a,         \
+                    const uint32_t* b, uint32_t* out, long long n,        \
+                    void* stream) {                                        \
+    return ecc::launch_mul<K>(f, a, b, out, n, stream);                    \
+  }                                                                        \
+  int mont_sqr_k##K(const ecc::FieldCtx<K>* f, const uint32_t* a,         \
+                    uint32_t* out, long long n, void* stream) {            \
+    return ecc::launch_sqr<K>(f, a, out, n, stream);                       \
+  }
 
-int mont_sqr_k8(const ecc::FieldCtx<8>* f, const uint32_t* a, uint32_t* out,
-                long long n, void* stream) {
-  return ecc::launch_sqr<8>(f, a, out, n, stream);
-}
-
-int mont_mul_k14(const ecc::FieldCtx<14>* f, const uint32_t* a,
-                 const uint32_t* b, uint32_t* out, long long n,
-                 void* stream) {
-  return ecc::launch_mul<14>(f, a, b, out, n, stream);
-}
-
-int mont_sqr_k14(const ecc::FieldCtx<14>* f, const uint32_t* a,
-                 uint32_t* out, long long n, void* stream) {
-  return ecc::launch_sqr<14>(f, a, out, n, stream);
-}
+ECC_MONT_ENTRY_POINTS(8)
+ECC_MONT_ENTRY_POINTS(12)
+ECC_MONT_ENTRY_POINTS(14)
+ECC_MONT_ENTRY_POINTS(16)
 
 }  // extern "C"

@@ -1,5 +1,7 @@
-// Kernels 2, 3 and 5: batched complete point addition, doubling, and the
-// fused 2^n * P + T step.
+// Kernels 2, 3 and 5 at K = 8 (256-bit moduli, every a): batched complete
+// point addition, doubling, and the fused 2^n * P + T step. Kernels 2 and
+// 3 are templates over K in point.cuh; point_wide.cu builds their K = 12
+// and K = 16 instances.
 //
 // Replace the TPU kernels libecc_tpu/ops/pallas/point.py:_build_add
 // (:470 -> _pallas_call3 :449, public point_add :539, body _add_body
@@ -26,36 +28,6 @@ namespace ecc {
 
 template <int K, int AK>
 __global__ void __launch_bounds__(256)
-point_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
-                 const uint32_t* __restrict__ y1,
-                 const uint32_t* __restrict__ z1,
-                 const uint32_t* __restrict__ x2,
-                 const uint32_t* __restrict__ y2,
-                 const uint32_t* __restrict__ z2, uint32_t* __restrict__ x3,
-                 uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
-                 long long n) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const Pt<K> P = load_pt<K>(x1, y1, z1, n, lane);
-  const Pt<K> Q = load_pt<K>(x2, y2, z2, n, lane);
-  store_pt<K>(x3, y3, z3, n, lane, rcb_add<K, AK>(P, Q, C));
-}
-
-template <int K, int AK>
-__global__ void __launch_bounds__(256)
-point_dbl_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
-                 const uint32_t* __restrict__ y1,
-                 const uint32_t* __restrict__ z1, uint32_t* __restrict__ x3,
-                 uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
-                 long long n) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  store_pt<K>(x3, y3, z3, n, lane,
-              rcb_dbl<K, AK>(load_pt<K>(x1, y1, z1, n, lane), C));
-}
-
-template <int K, int AK>
-__global__ void __launch_bounds__(256)
 point_dbln_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
                       const uint32_t* __restrict__ y1,
                       const uint32_t* __restrict__ z1,
@@ -73,82 +45,46 @@ point_dbln_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
   store_pt<K>(x3, y3, z3, n, lane, rcb_add<K, AK>(from_jac<K>(J, C), T, C));
 }
 
-constexpr int kThreads = 256;
-
-inline unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
-template <int AK>
-void launch_add(const CurveCtx<8>& C, const uint32_t* const* in,
-                uint32_t* const* out, long long n, cudaStream_t s) {
-  point_add_kernel<8, AK><<<blocks_for(n), kThreads, 0, s>>>(
-      C, in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1], out[2],
-      n);
-}
-
-template <int AK>
-void launch_dbl(const CurveCtx<8>& C, const uint32_t* const* in,
-                uint32_t* const* out, long long n, cudaStream_t s) {
-  point_dbl_kernel<8, AK><<<blocks_for(n), kThreads, 0, s>>>(
-      C, in[0], in[1], in[2], out[0], out[1], out[2], n);
-}
-
-template <int AK>
-void launch_dbln_add(const CurveCtx<8>& C, const uint32_t* const* in,
-                     uint32_t* const* out, long long n, int ndbl,
-                     cudaStream_t s) {
-  point_dbln_add_kernel<8, AK><<<blocks_for(n), kThreads, 0, s>>>(
-      C, in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1], out[2], n,
-      ndbl);
+// Kernel 5 at K for the formula sets AKs. in: x1, y1, z1 (P), x2, y2, z2
+// (T); out: 2^ndbl * P + T.
+template <int K, int... AKs>
+int launch_dbln_add(const CurveCtx<K>* C, const uint32_t* const* in,
+                    uint32_t* const* out, long long n, int ndbl,
+                    void* stream) {
+  if (ndbl < 0) return (int)cudaErrorInvalidValue;
+  return launch_for_a<AKs...>(C->a_kind, n, [&](auto ak) {
+    point_dbln_add_kernel<K, decltype(ak)::value>
+        <<<point_blocks(n), kPointThreads, 0, (cudaStream_t)stream>>>(
+            *C, in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1],
+            out[2], n, ndbl);
+  });
 }
 
 }  // namespace ecc
 
 extern "C" {
 
+// Every a at K = 8: one formula set per a, chosen by the context's a_kind.
 // in: x1, y1, z1, x2, y2, z2; out: x3, y3, z3 (device pointers).
 int point_add_k8(const ecc::CurveCtx<8>* C, const uint32_t* const* in,
                  uint32_t* const* out, long long n, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    switch (C->a_kind) {
-      case ecc::A_M3: ecc::launch_add<ecc::A_M3>(*C, in, out, n, s); break;
-      case ecc::A_ZERO: ecc::launch_add<ecc::A_ZERO>(*C, in, out, n, s); break;
-      default: ecc::launch_add<ecc::A_GENERIC>(*C, in, out, n, s); break;
-    }
-  }
-  return (int)cudaGetLastError();
+  return ecc::launch_add<8, ecc::A_M3, ecc::A_ZERO, ecc::A_GENERIC>(
+      C, in, out, n, stream);
 }
 
 // in: x1, y1, z1; out: x3, y3, z3.
 int point_dbl_k8(const ecc::CurveCtx<8>* C, const uint32_t* const* in,
                  uint32_t* const* out, long long n, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    switch (C->a_kind) {
-      case ecc::A_M3: ecc::launch_dbl<ecc::A_M3>(*C, in, out, n, s); break;
-      case ecc::A_ZERO: ecc::launch_dbl<ecc::A_ZERO>(*C, in, out, n, s); break;
-      default: ecc::launch_dbl<ecc::A_GENERIC>(*C, in, out, n, s); break;
-    }
-  }
-  return (int)cudaGetLastError();
+  return ecc::launch_dbl<8, ecc::A_M3, ecc::A_ZERO, ecc::A_GENERIC>(
+      C, in, out, n, stream);
 }
 
 // in: x1, y1, z1 (P), x2, y2, z2 (T); out: 2^ndbl * P + T.
 int point_dbln_add_k8(const ecc::CurveCtx<8>* C, const uint32_t* const* in,
                       uint32_t* const* out, long long n, int ndbl,
                       void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (ndbl < 0) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    switch (C->a_kind) {
-      case ecc::A_M3: ecc::launch_dbln_add<ecc::A_M3>(*C, in, out, n, ndbl, s); break;
-      case ecc::A_ZERO: ecc::launch_dbln_add<ecc::A_ZERO>(*C, in, out, n, ndbl, s); break;
-      default: ecc::launch_dbln_add<ecc::A_GENERIC>(*C, in, out, n, ndbl, s); break;
-    }
-  }
-  return (int)cudaGetLastError();
+  return ecc::launch_dbln_add<8, ecc::A_M3, ecc::A_ZERO, ecc::A_GENERIC>(
+      C, in, out, n, ndbl, stream);
 }
 
 }  // extern "C"

@@ -12,6 +12,8 @@
 // _from_jac_body (:291); only public-scalar paths use it.
 #pragma once
 
+#include <type_traits>
+
 #include "field.cuh"
 
 namespace ecc {
@@ -229,6 +231,86 @@ __device__ __forceinline__ void store_pt(uint32_t* x, uint32_t* y,
   store_fe<K>(x, n, lane, P.x);
   store_fe<K>(y, n, lane, P.y);
   store_fe<K>(z, n, lane, P.z);
+}
+
+// Kernels 2 and 3 as templates over K and the formula set AK: one thread
+// per lane, the whole formula in registers. point.cu builds them at K = 8
+// for every a, point_wide.cu at K = 12 (a = -3) and K = 16 (generic a).
+template <int K, int AK>
+__global__ void __launch_bounds__(256)
+point_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
+                 const uint32_t* __restrict__ y1,
+                 const uint32_t* __restrict__ z1,
+                 const uint32_t* __restrict__ x2,
+                 const uint32_t* __restrict__ y2,
+                 const uint32_t* __restrict__ z2, uint32_t* __restrict__ x3,
+                 uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
+                 long long n) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  const Pt<K> P = load_pt<K>(x1, y1, z1, n, lane);
+  const Pt<K> Q = load_pt<K>(x2, y2, z2, n, lane);
+  store_pt<K>(x3, y3, z3, n, lane, rcb_add<K, AK>(P, Q, C));
+}
+
+template <int K, int AK>
+__global__ void __launch_bounds__(256)
+point_dbl_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
+                 const uint32_t* __restrict__ y1,
+                 const uint32_t* __restrict__ z1, uint32_t* __restrict__ x3,
+                 uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
+                 long long n) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  store_pt<K>(x3, y3, z3, n, lane,
+              rcb_dbl<K, AK>(load_pt<K>(x1, y1, z1, n, lane), C));
+}
+
+constexpr int kPointThreads = 256;
+
+inline unsigned point_blocks(long long n) {
+  return (unsigned)((n + kPointThreads - 1) / kPointThreads);
+}
+
+// Run launch(std::integral_constant<int, AK>{}) for the formula set AK
+// among AKs (the ones a library is built with) that is the curve's a_kind,
+// nothing for n <= 0, and return the CUDA error code. Another a_kind
+// launches nothing and returns cudaErrorInvalidValue.
+template <int AK, int... Rest, typename F>
+int launch_for_a(int a_kind, long long n, F&& launch) {
+  if (a_kind == AK) {
+    if (n > 0) launch(std::integral_constant<int, AK>{});
+    return (int)cudaGetLastError();
+  }
+  if constexpr (sizeof...(Rest) > 0) {
+    return launch_for_a<Rest...>(a_kind, n, launch);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 2 at K for the formula sets AKs. in: x1, y1, z1, x2, y2, z2;
+// out: x3, y3, z3 (device pointers).
+template <int K, int... AKs>
+int launch_add(const CurveCtx<K>* C, const uint32_t* const* in,
+               uint32_t* const* out, long long n, void* stream) {
+  return launch_for_a<AKs...>(C->a_kind, n, [&](auto ak) {
+    point_add_kernel<K, decltype(ak)::value>
+        <<<point_blocks(n), kPointThreads, 0, (cudaStream_t)stream>>>(
+            *C, in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1],
+            out[2], n);
+  });
+}
+
+// Kernel 3 likewise. in: x1, y1, z1; out: x3, y3, z3.
+template <int K, int... AKs>
+int launch_dbl(const CurveCtx<K>* C, const uint32_t* const* in,
+               uint32_t* const* out, long long n, void* stream) {
+  return launch_for_a<AKs...>(C->a_kind, n, [&](auto ak) {
+    point_dbl_kernel<K, decltype(ak)::value>
+        <<<point_blocks(n), kPointThreads, 0, (cudaStream_t)stream>>>(
+            *C, in[0], in[1], in[2], out[0], out[1], out[2], n);
+  });
 }
 
 }  // namespace ecc

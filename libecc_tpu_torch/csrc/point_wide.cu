@@ -1,0 +1,52 @@
+// Kernels 2 and 3 at K = 12 (384-bit moduli, a = -3: P-384) and K = 16
+// (512-bit moduli, generic a: BrainpoolP512r1/t1, GOST512 and the other
+// 512-bit curves of the registry), the templates of point.cuh built once
+// each in a file of their own, so their large unrolled bodies compile
+// beside the K = 8 file instead of after it.
+//
+// Replace the same TPU kernels as point.cu: libecc_tpu/ops/pallas/point.py
+// :_build_add (:470 -> _pallas_call3 :449, pallas_call :459) and
+// _build_dbl (:489). The K = 16 instances also stand for
+// libecc_tpu/ops/pallas/rows.py:RowOps (:129), the O(K) body those TPU
+// kernels take when the JAX limb count is over 30 (point.py:163-170; the
+// 512-bit curves are K = 37 there): on Hopper a 512-bit product is the
+// same template at K = 16, not a code path of its own. P-384 is K = 28 in
+// the JAX package and runs its tile backend; here it is the same template
+// at K = 12.
+//
+// Bound on the H100: integer-multiply issue, as at K = 8. A generic-a add
+// is 18 products (12 + 2 by b3 + 4 by a and a^2) for 9 x 64 bytes a lane
+// at K = 16, about 37,000 multiply-add slots; an a = -3 add at K = 12 is
+// 14 products for 9 x 48 bytes. Design: one thread per lane, the formula
+// in registers; at K = 16 a point is 48 registers, so the two operands
+// and the formula's temporaries pass the 255 a thread may hold and the
+// compiler spills (ptxas -v, chip_smoke.py prints it). Right first; the
+// spills are later work.
+#include "point.cuh"
+
+extern "C" {
+
+// in: x1, y1, z1, x2, y2, z2; out: x3, y3, z3 (each uint32[12][n]).
+// a = -3 only: another a_kind returns cudaErrorInvalidValue.
+int point_add_k12(const ecc::CurveCtx<12>* C, const uint32_t* const* in,
+                  uint32_t* const* out, long long n, void* stream) {
+  return ecc::launch_add<12, ecc::A_M3>(C, in, out, n, stream);
+}
+
+int point_dbl_k12(const ecc::CurveCtx<12>* C, const uint32_t* const* in,
+                  uint32_t* const* out, long long n, void* stream) {
+  return ecc::launch_dbl<12, ecc::A_M3>(C, in, out, n, stream);
+}
+
+// As above with uint32[16][n] coordinates; generic a only.
+int point_add_k16(const ecc::CurveCtx<16>* C, const uint32_t* const* in,
+                  uint32_t* const* out, long long n, void* stream) {
+  return ecc::launch_add<16, ecc::A_GENERIC>(C, in, out, n, stream);
+}
+
+int point_dbl_k16(const ecc::CurveCtx<16>* C, const uint32_t* const* in,
+                  uint32_t* const* out, long long n, void* stream) {
+  return ecc::launch_dbl<16, ecc::A_GENERIC>(C, in, out, n, stream);
+}
+
+}  // extern "C"

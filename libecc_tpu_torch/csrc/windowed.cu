@@ -15,7 +15,9 @@
 // entry d of the lane's 16-entry table [0..15]P (for Straus: P's table
 // with u's digit, then Q's table with v's digit). The accumulator stays in
 // registers across all windows; only the tables and the digits are read
-// from device memory and the result written once.
+// from device memory and the result written once. The loop is a template
+// over K in windowed.cuh: built here at K = 8 for every a, and in
+// windowed_wide.cu for kernel 4 at K = 12 (a = -3) and K = 16 (generic a).
 //
 // Twisted Edwards (kernels 7 and 6-ed, extended): the accumulator starts
 // at (0 : 1 : 1 : 0); per window, most significant first, w
@@ -56,51 +58,9 @@
 // Staging the tables in shared memory (1.5 or 2 KB a lane and pair) is
 // later work.
 #include "edpoint.cuh"
-#include "point.cuh"
+#include "windowed.cuh"
 
 namespace ecc {
-
-constexpr int kWindow = 4;
-constexpr int kEntries = 1 << kWindow;
-
-// The (digits, table) pairs of one launch: digits int32[nwin][n] MSW
-// first, table uint32[16][ncoord][K][n].
-template <int NPAIRS>
-struct Pairs {
-  const int32_t* digits[NPAIRS];
-  const uint32_t* table[NPAIRS];
-};
-
-template <int K, int AK, int NPAIRS>
-__global__ void __launch_bounds__(128)
-windowed_mul_kernel(const CurveCtx<K> C, const Pairs<NPAIRS> pr, int nwin,
-                    uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                    uint32_t* __restrict__ oz, long long n) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  Pt<K> acc;
-  acc.x = fe_zero<K>();
-  acc.y = fe_const<K>(C.one);
-  acc.z = fe_zero<K>();
-  const long long coord_stride = (long long)K * n;      // one coordinate
-  const long long entry_stride = 3 * coord_stride;      // one table entry
-#pragma unroll 1
-  for (int wi = 0; wi < nwin; ++wi) {
-    Pt<K> J = to_jac<K>(acc, C);
-#pragma unroll 1
-    for (int d = 0; d < kWindow; ++d) J = jac_dbl<K, AK>(J, C);
-    acc = from_jac<K>(J, C);
-#pragma unroll 1
-    for (int pi = 0; pi < NPAIRS; ++pi) {
-      const int dig = pr.digits[pi][(long long)wi * n + lane] & (kEntries - 1);
-      const uint32_t* e = pr.table[pi] + dig * entry_stride;
-      const Pt<K> T = load_pt<K>(e, e + coord_stride, e + 2 * coord_stride,
-                                 n, lane);
-      acc = rcb_add<K, AK>(acc, T, C);
-    }
-  }
-  store_pt<K>(ox, oy, oz, n, lane, acc);
-}
 
 template <int K, int AK, int NPAIRS>
 __global__ void __launch_bounds__(128)
@@ -135,46 +95,6 @@ windowed_mul_ed_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
   store_ext<K>(ox, oy, oz, ot, n, lane, acc);
 }
 
-constexpr int kThreads = 128;
-
-inline unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
-template <int NPAIRS>
-Pairs<NPAIRS> pairs_of(const int32_t* const* digits,
-                       const uint32_t* const* tables) {
-  Pairs<NPAIRS> pr;
-  for (int i = 0; i < NPAIRS; ++i) {
-    pr.digits[i] = digits[i];
-    pr.table[i] = tables[i];
-  }
-  return pr;
-}
-
-template <int AK, int NPAIRS>
-void launch(const CurveCtx<8>& C, const Pairs<NPAIRS>& pr, int nwin,
-            uint32_t* const* out, long long n, cudaStream_t s) {
-  windowed_mul_kernel<8, AK, NPAIRS><<<blocks_for(n), kThreads, 0, s>>>(
-      C, pr, nwin, out[0], out[1], out[2], n);
-}
-
-template <int NPAIRS>
-int launch_w(const CurveCtx<8>* C, const int32_t* const* digits, int nwin,
-             const uint32_t* const* tables, uint32_t* const* out,
-             long long n, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    const Pairs<NPAIRS> pr = pairs_of<NPAIRS>(digits, tables);
-    switch (C->a_kind) {
-      case A_M3: launch<A_M3, NPAIRS>(*C, pr, nwin, out, n, s); break;
-      case A_ZERO: launch<A_ZERO, NPAIRS>(*C, pr, nwin, out, n, s); break;
-      default: launch<A_GENERIC, NPAIRS>(*C, pr, nwin, out, n, s); break;
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
 template <int K, int AK, int NPAIRS>
 int launch_ed(const EdCurveCtx<K>* C, const int32_t* const* digits,
               int nwin, const uint32_t* const* tables, uint32_t* const* out,
@@ -199,14 +119,16 @@ int windowed_mul_k8_w4(const ecc::CurveCtx<8>* C,
                        const int32_t* const* digits, int nwin,
                        const uint32_t* const* tables, uint32_t* const* out,
                        long long n, void* stream) {
-  return ecc::launch_w<1>(C, digits, nwin, tables, out, n, stream);
+  return ecc::launch_w<8, 1, ecc::A_M3, ecc::A_ZERO, ecc::A_GENERIC>(
+      C, digits, nwin, tables, out, n, stream);
 }
 
 // Kernel 6: u*P + v*Q; digits = (u's, v's), tables = (P's, Q's).
 int straus_mul_k8_w4(const ecc::CurveCtx<8>* C, const int32_t* const* digits,
                      int nwin, const uint32_t* const* tables,
                      uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_w<2>(C, digits, nwin, tables, out, n, stream);
+  return ecc::launch_w<8, 2, ecc::A_M3, ecc::A_ZERO, ecc::A_GENERIC>(
+      C, digits, nwin, tables, out, n, stream);
 }
 
 // As above with uint32[16][4][8][n] tables and out x, y, z, t. Return

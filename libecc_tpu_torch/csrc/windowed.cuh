@@ -1,0 +1,85 @@
+// The short-Weierstrass window loop of kernels 4 and 6 as a template over
+// K, the formula set AK and the number of (table, digits) pairs NPAIRS,
+// with its launchers. windowed.cu builds it at K = 8 (every a, one and two
+// pairs) beside the Edwards kernels; windowed_wide.cu at K = 12 (a = -3)
+// and K = 16 (generic a), one pair. The design notes are in windowed.cu.
+#pragma once
+
+#include "point.cuh"
+
+namespace ecc {
+
+constexpr int kWindow = 4;
+constexpr int kEntries = 1 << kWindow;
+
+// The (digits, table) pairs of one launch: digits int32[nwin][n] MSW
+// first, table uint32[16][ncoord][K][n].
+template <int NPAIRS>
+struct Pairs {
+  const int32_t* digits[NPAIRS];
+  const uint32_t* table[NPAIRS];
+};
+
+template <int K, int AK, int NPAIRS>
+__global__ void __launch_bounds__(128)
+windowed_mul_kernel(const CurveCtx<K> C, const Pairs<NPAIRS> pr, int nwin,
+                    uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                    uint32_t* __restrict__ oz, long long n) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  Pt<K> acc;
+  acc.x = fe_zero<K>();
+  acc.y = fe_const<K>(C.one);
+  acc.z = fe_zero<K>();
+  const long long coord_stride = (long long)K * n;      // one coordinate
+  const long long entry_stride = 3 * coord_stride;      // one table entry
+#pragma unroll 1
+  for (int wi = 0; wi < nwin; ++wi) {
+    Pt<K> J = to_jac<K>(acc, C);
+#pragma unroll 1
+    for (int d = 0; d < kWindow; ++d) J = jac_dbl<K, AK>(J, C);
+    acc = from_jac<K>(J, C);
+#pragma unroll 1
+    for (int pi = 0; pi < NPAIRS; ++pi) {
+      const int dig = pr.digits[pi][(long long)wi * n + lane] & (kEntries - 1);
+      const uint32_t* e = pr.table[pi] + dig * entry_stride;
+      const Pt<K> T = load_pt<K>(e, e + coord_stride, e + 2 * coord_stride,
+                                 n, lane);
+      acc = rcb_add<K, AK>(acc, T, C);
+    }
+  }
+  store_pt<K>(ox, oy, oz, n, lane, acc);
+}
+
+constexpr int kThreads = 128;
+
+inline unsigned blocks_for(long long n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+template <int NPAIRS>
+Pairs<NPAIRS> pairs_of(const int32_t* const* digits,
+                       const uint32_t* const* tables) {
+  Pairs<NPAIRS> pr;
+  for (int i = 0; i < NPAIRS; ++i) {
+    pr.digits[i] = digits[i];
+    pr.table[i] = tables[i];
+  }
+  return pr;
+}
+
+// Kernels 4 and 6 at K with NPAIRS pairs for the formula sets AKs (see
+// launch_for_a); out: x, y, z.
+template <int K, int NPAIRS, int... AKs>
+int launch_w(const CurveCtx<K>* C, const int32_t* const* digits, int nwin,
+             const uint32_t* const* tables, uint32_t* const* out,
+             long long n, void* stream) {
+  const Pairs<NPAIRS> pr = pairs_of<NPAIRS>(digits, tables);
+  return launch_for_a<AKs...>(C->a_kind, n, [&](auto ak) {
+    windowed_mul_kernel<K, decltype(ak)::value, NPAIRS>
+        <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            *C, pr, nwin, out[0], out[1], out[2], n);
+  });
+}
+
+}  // namespace ecc

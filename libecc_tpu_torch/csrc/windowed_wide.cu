@@ -1,0 +1,55 @@
+// Kernel 4 at K = 12 (384-bit moduli, a = -3: P-384, 96 windows of q's 384
+// bits) and K = 16 (512-bit moduli, generic a: BrainpoolP512r1/t1, GOST512
+// and the other 512-bit curves of the registry, 128 windows): the whole
+// windowed v*Q for public scalars, w = 4, one (table, digits) pair. The
+// template is windowed.cuh's, built here in a file of its own so that its
+// large unrolled bodies compile beside the K = 8 file instead of after it.
+//
+// Replaces libecc_tpu/ops/pallas/megamul.py:_build (:161, pallas_call :184)
+// via windowed_mul (:217), npairs 1, model 'w'. The K = 16 instance, with
+// kernels 1-3 at K = 16, is the port's counterpart of
+// libecc_tpu/ops/pallas/rows.py:RowOps (:129) for the short-Weierstrass
+// model: the JAX package takes that O(K) body for its K = 37 limbs of 15
+// bits (and, over the VMEM budget at w = 4, a 3-bit window,
+// megamul.py:198-206); here the register file holds the accumulator and
+// the table stays in device memory, so w = 4 serves every K.
+//
+// Bound on the H100: integer-multiply issue. Per window 4 Jacobian
+// doublings, the to_jac / from_jac pair and one complete add: 22 squares
+// and 30 products for a = -3; for generic a each doubling takes two
+// squares more (x^2 and delta^2 for 3 x^2 + a delta^2) and the add four
+// products more (by a and a^2): 30 squares and 34 products. At 8192 lanes
+// that is about 1.3 ms of the card's multiply-add issue at K = 12 (96
+// windows) and 3.7 ms at K = 16 (128 windows); chip_smoke.py computes the
+// bound of each run. The table read is one 3K-word entry a window and
+// lane, small beside the arithmetic.
+// Design: as K = 8, one thread per lane, the accumulator and the formula
+// in registers, the entry read from device memory by index (PUBLIC
+// scalars only). At K = 16 the accumulator, the entry and the temporaries
+// pass the 255 registers a thread may hold, so the compiler spills to
+// local memory; right first, the spills are later work.
+#include "windowed.cuh"
+
+extern "C" {
+
+// digits: int32[nwin][n] (MSW first); tables: uint32[16][3][12][n]; out:
+// x, y, z (each uint32[12][n]). a = -3 only: another a_kind returns
+// cudaErrorInvalidValue.
+int windowed_mul_k12_w4(const ecc::CurveCtx<12>* C,
+                        const int32_t* const* digits, int nwin,
+                        const uint32_t* const* tables, uint32_t* const* out,
+                        long long n, void* stream) {
+  return ecc::launch_w<12, 1, ecc::A_M3>(C, digits, nwin, tables, out, n,
+                                         stream);
+}
+
+// As above at K = 16 (uint32[16][3][16][n] tables); generic a only.
+int windowed_mul_k16_w4(const ecc::CurveCtx<16>* C,
+                        const int32_t* const* digits, int nwin,
+                        const uint32_t* const* tables, uint32_t* const* out,
+                        long long n, void* stream) {
+  return ecc::launch_w<16, 1, ecc::A_GENERIC>(C, digits, nwin, tables, out,
+                                              n, stream);
+}
+
+}  // extern "C"

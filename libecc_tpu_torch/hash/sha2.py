@@ -1,7 +1,9 @@
-"""SHA-256 for the verify path: host packing and a batched tensor kernel.
+"""The SHA-2 family for the verify paths: host packing and batched tensor
+code for SHA-224, SHA-256, SHA-384 and SHA-512.
 
 Port of ``libecc_tpu/hash/sha2.py:pack_blocks_sha256`` (:201),
-``blocks_from_bytes_dev`` (:229) and ``sha256_device`` (:255). A batch of
+``blocks_from_bytes_dev`` (:229), ``sha256_device`` (:255) and
+``sha224_device`` (:292), and of the SHA-512 half below. A batch of
 same-block-count messages is ``int32[nblk, 16, N]`` big-endian words; the
 rounds run as plain tensor code over the batch on int64 copies of the
 words (the JAX package computes them in XLA, outside any Pallas kernel).
@@ -35,12 +37,20 @@ K256 = [
 H256 = [0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
         0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19]
 
+H224 = [0xc1059ed8, 0x367cd507, 0x3070dd17, 0xf70e5939,
+        0xffc00b31, 0x68581511, 0x64f98fa7, 0xbefa4fa4]
+
 DIGEST_BITS = 256
 
 
 def _padding(mlen: int) -> bytes:
     return (b"\x80" + b"\x00" * ((55 - mlen) % 64)
             + struct.pack(">Q", mlen * 8))
+
+
+def nblocks_sha256(mlen: int) -> int:
+    """Padded 64-byte block count of a message of mlen bytes."""
+    return (mlen + 9 + 63) // 64
 
 
 def pack_blocks_sha256(msgs: list[bytes]) -> np.ndarray:
@@ -110,16 +120,22 @@ def sha256_device(blocks: torch.Tensor, iv=H256) -> torch.Tensor:
     return _narrow(torch.stack(h))
 
 
+def sha224_device(blocks: torch.Tensor) -> torch.Tensor:
+    """Batched SHA-224: SHA-256 from its own IV, cut to 7 words."""
+    return sha256_device(blocks, iv=H224)[:7]
+
+
 # ---------------------------------------------------------------------------
 # SHA-512: 64-bit words as (hi, lo) 32-bit halves
 # ---------------------------------------------------------------------------
-# Port of libecc_tpu/hash/sha2.py:pack_blocks_sha512 (:300) and
-# sha512_device (:342). Torch has no uint64, and int64 shifts and overflow
-# are signed, so every 64-bit word is held as its two 32-bit halves in an
-# int64[2, N] tensor (row 0 the high half). Bitwise operations act on both
-# halves at once; a sum of several words is taken unreduced (each half
-# stays far below 2^63) and then carried once: the low half's carry goes
-# into the high half, the high half's carry out of 2^64 is dropped.
+# Port of libecc_tpu/hash/sha2.py:pack_blocks_sha512 (:300), sha512_device
+# (:342) and sha384_device (:414). Torch has no uint64, and int64 shifts
+# and overflow are signed, so every 64-bit word is held as its two 32-bit
+# halves in an int64[2, N] tensor (row 0 the high half). Bitwise operations
+# act on both halves at once; a sum of several words is taken unreduced
+# (each half stays far below 2^63) and then carried once: the low half's
+# carry goes into the high half, the high half's carry out of 2^64 is
+# dropped.
 
 K512 = [
     0x428a2f98d728ae22, 0x7137449123ef65cd, 0xb5c0fbcfec4d3b2f,
@@ -154,6 +170,10 @@ K512 = [
 H512 = [0x6a09e667f3bcc908, 0xbb67ae8584caa73b, 0x3c6ef372fe94f82b,
         0xa54ff53a5f1d36f1, 0x510e527fade682d1, 0x9b05688c2b3e6c1f,
         0x1f83d9abfb41bd6b, 0x5be0cd19137e2179]
+
+H384 = [0xcbbb9d5dc1059ed8, 0x629a292a367cd507, 0x9159015a3070dd17,
+        0x152fecd8f70e5939, 0x67332667ffc00b31, 0x8eb44a8768581511,
+        0xdb0c2e0d64f98fa7, 0x47b5481dbefa4fa4]
 
 SHA512_DIGEST_BYTES = 64
 
@@ -249,3 +269,9 @@ def sha512_device(blocks: torch.Tensor, iv=H512) -> torch.Tensor:
                                         _carry(t1 + S0 + maj))
         h = [_carry(x + y) for x, y in zip(h, [a, bb, c, d, e, f, g, hh])]
     return _narrow(torch.cat(h, 0))
+
+
+def sha384_device(blocks: torch.Tensor) -> torch.Tensor:
+    """Batched SHA-384: SHA-512 from its own IV, cut to 6 64-bit words
+    (12 32-bit words)."""
+    return sha512_device(blocks, iv=H384)[:12]

@@ -30,6 +30,8 @@ _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 # source stem -> nvcc output of the last build (ptxas register/spill lines)
 build_log: dict[str, str] = {}
+# source stem -> seconds from the start of the build to its nvcc's end
+build_file_seconds: dict[str, float] = {}
 build_seconds: float | None = None
 
 
@@ -69,12 +71,23 @@ def _build_all() -> None:
                 procs.append((src.stem, tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True)))
+            logs = {}
+
+            def wait(stem, proc):
+                logs[stem] = proc.communicate()[0]
+                build_file_seconds[stem] = time.perf_counter() - t0
+
+            waiters = [threading.Thread(target=wait, args=(stem, proc))
+                       for stem, _, proc in procs]
+            for th in waiters:
+                th.start()
+            for th in waiters:
+                th.join()
             failed = []
             for stem, tmp, proc in procs:
-                log, _ = proc.communicate()
-                build_log[stem] = log
+                build_log[stem] = logs[stem]
                 if proc.returncode != 0:
-                    failed.append(f"{stem}.cu:\n{log}")
+                    failed.append(f"{stem}.cu:\n{logs[stem]}")
                 else:
                     os.replace(tmp, outs[stem])
             if failed:

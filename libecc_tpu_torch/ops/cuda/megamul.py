@@ -1,5 +1,6 @@
 """Kernels 4, 6, 7 and 6-ed: the whole fixed-window scalar multiply and the
-whole Straus dual multiply (``csrc/windowed.cu``).
+whole Straus dual multiply (``csrc/windowed.cu``; the K = 12 and K = 16
+instances of kernel 4 in ``csrc/windowed_wide.cu``).
 
 Counterpart of ``libecc_tpu/ops/pallas/megamul.py``: ``windowed_mul``
 (npairs 1) and ``straus_mul`` (npairs 2), each in two models. The model
@@ -18,9 +19,11 @@ and 6, model ``w``), four is twisted Edwards (kernels 7 and 6-ed, model
 The kernels read the entry by index, so they serve PUBLIC scalars only
 (see the note in the CUDA source). The TPU kernel's VMEM sizing and its
 w -> w-1 fallback have no counterpart: the kernels are built at w = 4 for
-K = 8 (all four; Edwards a = -1) and, for kernel 7, K = 14 (Edwards a = 1,
-Ed448: the counterpart of the TPU's large-K ``rows.py:RowOps`` backend);
-the wrappers raise on any other shape for a tensor on the card.
+K = 8 (all four; every a, Edwards a = -1), for kernel 7 at K = 14
+(Edwards a = 1, Ed448) and for kernel 4 at K = 12 (a = -3, P-384) and
+K = 16 (generic a: the 512-bit curves). The K = 14 and K = 16 instances
+are the counterpart of the TPU's large-K ``rows.py:RowOps`` backend. The
+wrappers raise on any other shape or a for a tensor on the card.
 """
 
 from __future__ import annotations
@@ -32,40 +35,63 @@ import torch
 from . import build, edpoint
 from .build import kernel_name
 from .mont import _stream
-from .point import (PlainField, _add_body, a_kind, curve_ctx_type,
-                    curve_struct, dbln_jac_body, ptr_array)
+from .point import (A_GENERIC, A_M3, A_NAMES, PlainField, _add_body,
+                    a_kind, curve_ctx_type, curve_struct, dbln_jac_body,
+                    ptr_array)
 
 WINDOW = 4
 
 # The built instances: (K, model, number of pairs) -> kernel name, C entry
-# point and, for model "ed", the a_kind the formulas are built for (model
-# "w" takes every a). Model "w" is short Weierstrass (three coordinates),
-# "ed" twisted Edwards (four). The support check, the ctypes typing and the
-# launch counts derive from this table.
+# point, the a_kind the formulas are built for (None: every a, one formula
+# set per a chosen at launch) and the library (csrc/<stem>.cu). Model "w"
+# is short Weierstrass (three coordinates, point.A_* kinds), "ed" twisted
+# Edwards (four, edpoint.A_* kinds). The wide model-"w" instances (K = 12
+# for P-384, K = 16 for the 512-bit curves) are named by their C entry
+# points. The support check, the ctypes typing and the launch counts
+# derive from this table.
 A_M1, A_1 = edpoint.A_M1, edpoint.A_1
-_KERNELS = {(8, "w", 1): ("windowed_mul", "windowed_mul_k8_w4", None),
-            (8, "ed", 1): ("windowed_mul_ed", "windowed_mul_ed_k8_w4", A_M1),
-            (8, "w", 2): ("straus_mul", "straus_mul_k8_w4", None),
-            (8, "ed", 2): ("straus_mul_ed", "straus_mul_ed_k8_w4", A_M1),
-            (14, "ed", 1): (kernel_name("windowed_mul_ed", 14),
-                            "windowed_mul_ed_k14_w4", A_1)}
+_KERNELS = {
+    (8, "w", 1): ("windowed_mul", "windowed_mul_k8_w4", None, "windowed"),
+    (8, "ed", 1): ("windowed_mul_ed", "windowed_mul_ed_k8_w4", A_M1,
+                   "windowed"),
+    (8, "w", 2): ("straus_mul", "straus_mul_k8_w4", None, "windowed"),
+    (8, "ed", 2): ("straus_mul_ed", "straus_mul_ed_k8_w4", A_M1,
+                   "windowed"),
+    (14, "ed", 1): (kernel_name("windowed_mul_ed", 14),
+                    "windowed_mul_ed_k14_w4", A_1, "windowed"),
+    (12, "w", 1): ("windowed_mul_k12_w4", "windowed_mul_k12_w4", A_M3,
+                   "windowed_wide"),
+    (16, "w", 1): ("windowed_mul_k16_w4", "windowed_mul_k16_w4", A_GENERIC,
+                   "windowed_wide")}
 
-launches = {name: 0 for name, _, _ in _KERNELS.values()}
+launches = {inst[0]: 0 for inst in _KERNELS.values()}
+
+
+def _a_kind(curve, model: str) -> int:
+    return edpoint.a_kind(curve) if model == "ed" else a_kind(curve)
+
+
+def _a_name(kind, model: str) -> str:
+    if kind is None:
+        return "every a"
+    return f"a = {edpoint.a_name(kind)}" if model == "ed" else A_NAMES[kind]
 
 
 def supported(curve, w: int, model: str, npairs: int) -> bool:
-    """Whether a kernel is built for this curve's K (and, for model "ed",
-    its a), the model, the number of pairs and the window width."""
+    """Whether a kernel is built for this curve's K and a, the model, the
+    number of pairs and the window width."""
     inst = _KERNELS.get((curve.fp_ctx.k, model, npairs))
     return (inst is not None and w == WINDOW
-            and (inst[2] is None or inst[2] == edpoint.a_kind(curve)))
+            and inst[2] in (None, _a_kind(curve, model)))
 
 
-def _lib():
-    lib = build.library("windowed")
+def _lib(stem: str):
+    lib = build.library(stem)
     if not getattr(lib, "_typed", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        for (k, model, _), (_, cname, _) in _KERNELS.items():
+        for (k, model, _), (_, cname, _, lib_stem) in _KERNELS.items():
+            if lib_stem != stem:
+                continue
             ctx = (edpoint.ed_curve_ctx_type(k) if model == "ed"
                    else curve_ctx_type(k))
             fn = getattr(lib, cname)
@@ -131,14 +157,15 @@ def _launch(curve, tables, digits, point_cls):
     w = (tables[0].shape[0] - 1).bit_length()
     if not supported(curve, w, model, npairs):
         built = ", ".join(
-            f"K = {k_}" + ("" if a is None else f", a = {edpoint.a_name(a)}")
-            for (k_, m, n_), (_, _, a) in _KERNELS.items()
+            f"(K = {k_}, {_a_name(a, model)})"
+            for (k_, m, n_), (_, _, a, _) in _KERNELS.items()
             if (m, n_) == (model, npairs))
         raise ValueError(f"megamul ({model}, {npairs} pair(s)): the CUDA "
-                         f"kernel is built for ({built}) and w = {WINDOW}, "
-                         f"not {curve.name} (K = {k}, a = {curve.a}), "
+                         f"kernel is built for {built} and w = {WINDOW}, "
+                         f"not {curve.name} (K = {k}, "
+                         f"{_a_name(_a_kind(curve, model), model)}), "
                          f"w = {w}")
-    name, cname, _ = _KERNELS[(k, model, npairs)]
+    name, cname, _, stem = _KERNELS[(k, model, npairs)]
     n = tables[0].shape[-1]
     ncoord = len(point_cls._fields)
     nwin = digits[0].shape[0]
@@ -156,9 +183,9 @@ def _launch(curve, tables, digits, point_cls):
     out = [torch.empty((k, n), dtype=torch.int32, device=tables[0].device)
            for _ in range(ncoord)]
     cs = edpoint.curve_struct(curve) if ed else curve_struct(curve)
-    rc = getattr(_lib(), cname)(ctypes.byref(cs), ptr_array(digits), nwin,
-                                ptr_array(tables), ptr_array(out), n,
-                                _stream())
+    rc = getattr(_lib(stem), cname)(ctypes.byref(cs), ptr_array(digits),
+                                    nwin, ptr_array(tables), ptr_array(out),
+                                    n, _stream())
     build.check(rc, name)
     launches[name] += 1
     return point_cls(*out)

@@ -1,8 +1,10 @@
 """Kernel 1: batched Montgomery multiply and square (``csrc/mont.cu``).
 
 Counterpart of ``libecc_tpu/ops/pallas/mont.py``, built for K = 8 (256-bit
-moduli) and K = 14 (448-bit: Ed448; with kernels 8a, 8b and 7 at K = 14
-the counterpart of the TPU's large-K ``rows.py:RowOps`` backend). The
+moduli), K = 12 (384-bit: P-384), K = 14 (448-bit: Ed448) and K = 16
+(512-bit: BrainpoolP512r1, GOST512; with kernels 8a, 8b and 7 at K = 14
+and kernels 2-4 at K = 16 the counterpart of the TPU's large-K
+``rows.py:RowOps`` backend). The
 wrappers launch the CUDA kernel for tensors on the card and take the plain
 version (``nn.core.mont_mul`` / ``mont_sqr``) only for tensors on the CPU.
 There is no other switch.
@@ -19,10 +21,10 @@ from ...nn import core as nn
 from . import build
 from .build import kernel_name
 
-SUPPORTED_K = (8, 14)
+SUPPORTED_K = (8, 12, 14, 16)
 
 # launches of each kernel (incremented only where the kernel is launched);
-# the K = 14 instances count under their own names
+# the wider instances count under their own names ("mont_mul_k12")
 launches = {name: 0 for k in SUPPORTED_K
             for name in (kernel_name("mont_mul", k),
                          kernel_name("mont_sqr", k))}

@@ -1,5 +1,6 @@
 """Kernels 2, 3 and 5: complete point addition, doubling and the fused
-2^n*P + T step (``csrc/point.cu``).
+2^n*P + T step (``csrc/point.cu``; the K = 12 and K = 16 instances of 2
+and 3 in ``csrc/point_wide.cu``).
 
 Counterparts of ``libecc_tpu/ops/pallas/point.py:point_add`` /
 ``point_dbl`` / ``point_dbln_add``. The plain versions below evaluate the
@@ -25,12 +26,21 @@ from .mont import (check_operand, field_ctx_type, field_struct,
                    mont_limbs, _stream)
 
 A_GENERIC, A_M3, A_ZERO = 0, 1, 2
-# The built instances of kernels 2, 3 and 5 (every a): the support check,
-# the ctypes typing and the launch counts derive from these.
+A_NAMES = {A_GENERIC: "generic a", A_M3: "a = -3", A_ZERO: "a = 0"}
 BASES = ("point_add", "point_dbl", "point_dbln_add")
-SUPPORTED_K = (8,)
+# The built instances of kernels 2, 3 and 5: (K, a_kind) -> the library
+# (csrc/<stem>.cu) and the kernels built there. K = 8 takes every a (one
+# formula set per a, chosen at launch); K = 12 (P-384) and K = 16 (the
+# 512-bit curves) are built for one a each, and kernel 5 at K = 8 only.
+# The support check, the ctypes typing and the launch counts derive from
+# this table.
+_WIDE = ("point_add", "point_dbl")
+BUILT = {(8, A_GENERIC): ("point", BASES), (8, A_M3): ("point", BASES),
+         (8, A_ZERO): ("point", BASES), (12, A_M3): ("point_wide", _WIDE),
+         (16, A_GENERIC): ("point_wide", _WIDE)}
 
-launches = {kernel_name(base, k): 0 for base in BASES for k in SUPPORTED_K}
+launches = {kernel_name(base, k): 0
+            for (k, _), (_, bases) in BUILT.items() for base in bases}
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,13 +73,15 @@ def ptr_array(ts) -> ctypes.Array:
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
-def _lib():
-    lib = build.library("point")
+def _lib(stem: str):
+    lib = build.library(stem)
     if not getattr(lib, "_typed", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        for k in SUPPORTED_K:
+        for (k, _), (lib_stem, bases) in BUILT.items():
+            if lib_stem != stem:
+                continue
             cctx = ctypes.POINTER(curve_ctx_type(k))
-            for base in BASES:
+            for base in bases:
                 ndbl = [ctypes.c_int] if base == "point_dbln_add" else []
                 fn = getattr(lib, f"{base}_k{k}")
                 fn.argtypes = [cctx, vp, vp, ll, *ndbl, vp]
@@ -283,13 +295,16 @@ def _check_point(curve, P, what):
 def _launch(base, curve, ins, *extra):
     """Launch point_add / point_dbl / point_dbln_add on the card: the three
     output coordinates."""
-    k = curve.fp_ctx.k
-    if k not in SUPPORTED_K:
-        raise ValueError(f"{base}: the CUDA kernel is built for K in "
-                         f"{SUPPORTED_K}, not K = {k}")
+    k, kind = curve.fp_ctx.k, a_kind(curve)
+    stem, bases = BUILT.get((k, kind), (None, ()))
+    if base not in bases:
+        built = ", ".join(f"(K = {k_}, {A_NAMES[a]})"
+                          for (k_, a), (_, bs) in BUILT.items() if base in bs)
+        raise ValueError(f"{base}: the CUDA kernel is built for {built}, "
+                         f"not {curve.name} (K = {k}, {A_NAMES[kind]})")
     _check_point(curve, ins, f"{base} operands")
     out = [torch.empty_like(ins[0]) for _ in range(3)]
-    rc = getattr(_lib(), f"{base}_k{k}")(
+    rc = getattr(_lib(stem), f"{base}_k{k}")(
         ctypes.byref(curve_struct(curve)), ptr_array(ins), ptr_array(out),
         ins[0].shape[1], *extra, _stream())
     name = kernel_name(base, k)

@@ -70,6 +70,16 @@ def ec_neg(c: WCurve, P):
     return (P[0], (-P[1]) % c.p)
 
 
+def window_edge_scalars(q: int, w: int = 4) -> list[int]:
+    """Scalars that drive a w-bit fixed-window multiply of a point of order
+    q through the complete add's edge cases in its last window: 0 (every
+    add is T + O), q (the last add is -T + T, the result the identity) and
+    q + 2d with d = -q mod 2^w (the accumulator before the last add is
+    d*P, the entry d*P: T + T); then 1 and q - 1."""
+    d = (-q) % (1 << w)
+    return [0, q, q + 2 * d, 1, q - 1]
+
+
 # -- fixed-base multiplication by a comb (fixtures) ----------------------------
 # An 8-bit comb of affine multiples of G and Jacobian accumulation: one
 # inversion per product instead of one per group operation, so a fixture

@@ -7,8 +7,8 @@ through kernel 1 with q's constants (one binary serves p and q).
 
 from __future__ import annotations
 
-import hashlib
 from collections import defaultdict
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -31,26 +31,56 @@ def digests_to_words(digs: list[bytes]) -> np.ndarray:
         np.uint32)
 
 
-def _hasher(hash_name: str):
-    """(padded block count of a length, packer, device function, digest
-    bytes) of a ported hash: SHA-512 or one of the SHA-3 family."""
-    key = hash_name.replace("-", "").replace("_", "").upper()
-    if key == "SHA512":
-        return (sha2.nblocks_sha512, sha2.pack_blocks_sha512,
-                sha2.sha512_device, sha2.SHA512_DIGEST_BYTES)
+class Hasher(NamedTuple):
+    """A hash that the signature layer computes on the device: the padded
+    block count of a message length, the host packer, the tensor function
+    (packed blocks -> big-endian digest words) and the digest bytes."""
+    nblocks: Callable[[int], int]
+    pack: Callable
+    device: Callable
+    digest_bytes: int
+
+
+_SHA2 = {
+    "SHA224": Hasher(sha2.nblocks_sha256, sha2.pack_blocks_sha256,
+                     sha2.sha224_device, 28),
+    "SHA256": Hasher(sha2.nblocks_sha256, sha2.pack_blocks_sha256,
+                     sha2.sha256_device, 32),
+    "SHA384": Hasher(sha2.nblocks_sha512, sha2.pack_blocks_sha512,
+                     sha2.sha384_device, 48),
+    "SHA512": Hasher(sha2.nblocks_sha512, sha2.pack_blocks_sha512,
+                     sha2.sha512_device, sha2.SHA512_DIGEST_BYTES),
+}
+
+
+def hash_key(hash_name: str) -> str:
+    """A hash name without case, dashes or underscores ("SHA-384",
+    "sha384" -> "SHA384")."""
+    return hash_name.replace("-", "").replace("_", "").upper()
+
+
+def hasher(hash_name: str) -> Hasher:
+    """The device hash of a name ("SHA-384", "sha3_256", "SHAKE256"): one
+    of the SHA-2 hashes above or of the SHA-3 family (``sha3.PARAMS``).
+    Any other name raises ValueError."""
+    key = hash_key(hash_name)
+    if key in _SHA2:
+        return _SHA2[key]
     sha3_names = {name.replace("_", ""): name for name in sha3.PARAMS}
     if key not in sha3_names:
-        raise ValueError(f"batch_digests: hash {hash_name!r} is not ported; "
-                         f"SHA512 and {', '.join(sha3.PARAMS)} are")
+        raise ValueError(f"hash {hash_name!r} is not ported; "
+                         f"{', '.join(_SHA2)} and {', '.join(sha3.PARAMS)} "
+                         "are")
     rate, outlen, dsbyte = sha3.PARAMS[sha3_names[key]]
-    return (lambda mlen: sha3.nblocks_keccak(mlen, rate),
-            lambda msgs: sha3.pack_blocks_keccak(msgs, rate, dsbyte),
-            lambda blocks: sha3.sha3_device(blocks, rate, outlen), outlen)
+    return Hasher(lambda mlen: sha3.nblocks_keccak(mlen, rate),
+                  lambda msgs: sha3.pack_blocks_keccak(msgs, rate, dsbyte),
+                  lambda blocks: sha3.sha3_device(blocks, rate, outlen),
+                  outlen)
 
 
 def batch_digests(hash_name: str, msgs: list[bytes], device) -> list[bytes]:
-    """Digests of a message batch (SHA-512 or a SHA-3 / SHAKE, SHAKE256 at
-    114 bytes), hashed on `device`. Port of
+    """Digests of a message batch (any hash of ``hasher``; SHAKE256 at 114
+    bytes), hashed on `device`. Port of
     ``libecc_tpu/sig/common.py:batch_digests`` (:30-70): the messages are
     bucketed by padded block count and each bucket is hashed by one call of
     the device function; each digest is its big-endian words cut to the
@@ -58,7 +88,7 @@ def batch_digests(hash_name: str, msgs: list[bytes], device) -> list[bytes]:
     the reference, tiny buckets are not hashed on the host (the port has no
     host hash layer) and buckets are not padded to a power of two (nothing
     is traced)."""
-    nblocks, pack, device_fn, nb = _hasher(hash_name)
+    nblocks, pack, device_fn, nb = hasher(hash_name)
     groups = defaultdict(list)
     for i, m in enumerate(msgs):
         groups[nblocks(len(m))].append(i)
@@ -72,18 +102,23 @@ def batch_digests(hash_name: str, msgs: list[bytes], device) -> list[bytes]:
     return out
 
 
-def e_from_msgs(msgs: list[bytes], q_ctx: FpCtx, device):
-    """Message batch -> ECDSA scalar e = trunc(SHA-256(m)) mod q. Batches
-    whose messages pad to one block count are hashed on `device`; mixed
-    batches are hashed on the host."""
+def e_from_msgs(msgs: list[bytes], q_ctx: FpCtx, device,
+                hash_name: str = "SHA256"):
+    """Message batch -> ECDSA scalar e = trunc(H(m)) mod q, for any hash of
+    ``hasher``. Port of ``libecc_tpu/sig/common.py:e_from_msgs``
+    (:108-131): a batch whose messages pad to one block count is hashed by
+    one call of the tensor function and truncated on `device` without
+    leaving it; a mixed batch is hashed on `device` bucket by bucket
+    (``batch_digests``)."""
+    h = hasher(hash_name)
     try:
-        blocks = sha2.pack_blocks_sha256(msgs)
+        blocks = h.pack(msgs)
     except ValueError:
-        words = digests_to_words([hashlib.sha256(m).digest() for m in msgs])
-        return e_from_digest_bits(nn.upload(words, device), sha2.DIGEST_BITS,
-                                  q_ctx)
-    words = sha2.sha256_device(nn.upload(blocks, device))
-    return e_from_digest_bits(words, sha2.DIGEST_BITS, q_ctx)
+        words = nn.upload(digests_to_words(
+            batch_digests(hash_name, msgs, device)), device)
+    else:
+        words = h.device(nn.upload(blocks, device))
+    return e_from_digest_bits(words, 8 * h.digest_bytes, q_ctx)
 
 
 def e_from_digest_bits(words, digest_bits: int, q_ctx: FpCtx,

@@ -26,11 +26,6 @@ from ..hash import sha2
 from . import common
 
 
-def _hash_check(hash_name: str) -> None:
-    if hash_name.replace("-", "").upper() != "SHA256":
-        raise ValueError(f"hash {hash_name!r}: only SHA256 is ported")
-
-
 def verify_core(curve: ShortWCurve, pub: PrjPoint, e, r, s):
     """Batched ECDSA verify. e, r, s: int32[Kq, N] (e canonical, r and s as
     received, below 2^(32 Kq)); pub: points. Returns the accept mask.
@@ -82,19 +77,20 @@ def verify_core(curve: ShortWCurve, pub: PrjPoint, e, r, s):
 
 def verify_batch(keys, msgs: list[bytes], sigs: list[bytes],
                  hash_name="SHA256"):
-    """Verify N signatures (raw r || s). Returns an np.bool accept mask."""
-    _hash_check(hash_name)
-    e = common.e_from_msgs(msgs, keys.curve.q_ctx, keys.device)
+    """Verify N signatures (raw r || s) of messages hashed with hash_name
+    (SHA-224/256/384/512 or SHA-3, ``common.hasher``; another name raises
+    ValueError). Returns an np.bool accept mask."""
+    e = common.e_from_msgs(msgs, keys.curve.q_ctx, keys.device, hash_name)
     return _verify_with_e(keys, e, sigs)
 
 
 def verify_digests_batch(keys, digs: list[bytes], sigs: list[bytes],
                          hash_name="SHA256"):
-    """Digest-level verify; bit-identical to verify_batch on H(m) = digs."""
-    _hash_check(hash_name)
+    """Digest-level verify; bit-identical to verify_batch on H(m) = digs,
+    with H named by hash_name (its digest length sets the truncation)."""
+    digest_bits = 8 * common.hasher(hash_name).digest_bytes
     words = nn.upload(common.digests_to_words(digs), keys.device)
-    e = common.e_from_digest_bits(words, 8 * len(digs[0]),
-                                  keys.curve.q_ctx)
+    e = common.e_from_digest_bits(words, digest_bits, keys.curve.q_ctx)
     return _verify_with_e(keys, e, sigs)
 
 
@@ -118,9 +114,15 @@ def _verify_dispatch(keys, e, sigs):
     return verify_core(curve, keys.pub, e, r, s)
 
 
+# The hashes of the fused bytes-in path: SHA-224 and SHA-256, the 64-byte
+# block hashes that sha2.blocks_from_bytes_dev pads on the device.
+FUSED_HASHES = ("SHA224", "SHA256")
+
+
 def _fused_applicable(msgs, sigs, nb):
     """The bytes-in path applies to uniform-length batches of at least 64
-    messages of at most 4 SHA-256 blocks, with well-formed signatures."""
+    messages of at most 4 SHA-256 (or SHA-224) blocks, with well-formed
+    signatures."""
     if not msgs or len(msgs) < 64:
         return False
     mlen = len(msgs[0])
@@ -133,22 +135,25 @@ def _fused_applicable(msgs, sigs, nb):
 def verify_batch_async(keys, msgs: list[bytes], sigs: list[bytes],
                        hash_name="SHA256"):
     """Non-blocking verify_batch: returns the accept mask as a device
-    tensor without synchronising. Uniform batches take the fused bytes-in
-    path: the raw message and signature bytes go to the device, and the
-    padding, SHA-256 and limb unpacking run there."""
-    _hash_check(hash_name)
+    tensor without synchronising. Uniform batches hashed with SHA-224 or
+    SHA-256 take the fused bytes-in path (as the reference's
+    ``_fused_applicable``, :436): the raw message and signature bytes go to
+    the device, and the padding, the hash and the limb unpacking run there.
+    Other hashes take the unfused path."""
+    h = common.hasher(hash_name)
     curve, q_ctx = keys.curve, keys.curve.q_ctx
     nb = (curve.q.bit_length() + 7) // 8
-    if not _fused_applicable(msgs, sigs, nb):
-        e = common.e_from_msgs(msgs, q_ctx, keys.device)
+    if (common.hash_key(hash_name) not in FUSED_HASHES
+            or not _fused_applicable(msgs, sigs, nb)):
+        e = common.e_from_msgs(msgs, q_ctx, keys.device, hash_name)
         return _verify_dispatch(keys, e, sigs)
     n, mlen = len(msgs), len(msgs[0])
     msg_u8 = nn.upload(np.frombuffer(b"".join(msgs), np.uint8).reshape(
         n, mlen), keys.device)
     sig_u8 = nn.upload(np.frombuffer(b"".join(sigs), np.uint8).reshape(
         n, 2 * nb), keys.device)
-    words = sha2.sha256_device(sha2.blocks_from_bytes_dev(msg_u8, mlen))
-    e = common.e_from_digest_bits(words, sha2.DIGEST_BITS, q_ctx)
+    words = h.device(sha2.blocks_from_bytes_dev(msg_u8, mlen))
+    e = common.e_from_digest_bits(words, 8 * h.digest_bytes, q_ctx)
     r = nn.be_rows_to_limbs_dev(sig_u8[:, :nb], q_ctx.k)
     s = nn.be_rows_to_limbs_dev(sig_u8[:, nb:], q_ctx.k)
     stages.mark("hash", e, r, s)

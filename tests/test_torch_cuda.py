@@ -17,6 +17,7 @@ from libecc_tpu_torch.curves.shortw import PrjPoint
 from libecc_tpu_torch.fp.field import FpCtx
 from libecc_tpu_torch.nn import core as nn
 from libecc_tpu_torch.ops.cuda import edpoint, megamul, mont, point
+from libecc_tpu_torch.ops.cuda.build import kernel_name
 from libecc_tpu_torch.ref import hostref as H
 
 pytestmark = pytest.mark.cuda
@@ -30,17 +31,15 @@ def dev():
 
 
 def _ints(rng, n, mod):
-    return [int.from_bytes(rng.bytes(40), "big") % mod for _ in range(n)]
+    """n random residues mod `mod` from 64 bits more than it has."""
+    nbytes = (mod.bit_length() + 7) // 8 + 8
+    return [int.from_bytes(rng.bytes(nbytes), "big") % mod for _ in range(n)]
 
 
-def _points(c, rng, n, dev):
+def _prj(c, rng, pts, dev):
+    """Affine points (None: the identity) -> PrjPoint with random Z."""
     p = c.fp_ctx.p_int
-    wc = H.WCurve(p, c.a, c.b, c.gx, c.gy, c.q)
-    base = [H.ec_mul(wc, 1 + k % (c.q - 1), (c.gx, c.gy))
-            for k in _ints(rng, 16, c.q)]
-    pts = [base[i % 16] for i in range(n)]
-    pts[0] = None
-    lam = [1 + v % (p - 1) for v in _ints(rng, n, p)]
+    lam = [1 + v % (p - 1) for v in _ints(rng, len(pts), p)]
     f = c.fp_ctx.from_ints
     return PrjPoint(
         f([0 if q is None else q[0] * m % p for q, m in zip(pts, lam)], dev),
@@ -48,54 +47,115 @@ def _points(c, rng, n, dev):
         f([0 if q is None else m for q, m in zip(pts, lam)], dev))
 
 
+def _host(c):
+    return H.WCurve(c.fp_ctx.p_int, c.a, c.b, c.gx, c.gy, c.q, c.h)
+
+
+def _points(c, rng, n, dev):
+    """n projective points (16 distinct ones repeated), lane 0 the
+    identity."""
+    wc = _host(c)
+    base = [H.ec_mul(wc, 1 + k % (c.q - 1), (c.gx, c.gy))
+            for k in _ints(rng, 16, c.q)]
+    pts = [base[i % 16] for i in range(n)]
+    pts[0] = None
+    return _prj(c, rng, pts, dev)
+
+
+def _point_pairs(c, rng, n, dev):
+    """Projective point pairs with the edge lanes P + O, O + Q, O + O,
+    P = Q and P = -Q, then random ones (random Z on every lane)."""
+    wc = _host(c)
+    base = [H.ec_base_mul(wc, 1 + k % (c.q - 1)) for k in _ints(rng, 16, c.q)]
+    a_pts = [base[i % 16] for i in range(n)]
+    b_pts = [base[(7 * i + 3) % 16] for i in range(n)]
+    b_pts[0] = a_pts[1] = a_pts[2] = b_pts[2] = None
+    b_pts[3] = a_pts[3]
+    b_pts[4] = H.ec_neg(wc, a_pts[4])
+    return _prj(c, rng, a_pts, dev), _prj(c, rng, b_pts, dev)
+
+
+# Kernels 1-4 at K = 8 (every a), K = 12 (P-384, a = -3) and K = 16 (the
+# 512-bit curves, generic a): K and the scalar bits come from the curve.
+
 @pytest.mark.parametrize("which", ["p", "q"])
-def test_mont_kernels_match_plain(dev, which):
-    c = params.get_curve("P-256")
+@pytest.mark.parametrize("name", ["P-256", "P-384", "BRAINPOOLP512R1",
+                                  "GOST512"])
+def test_mont_kernels_match_plain(dev, name, which):
+    c = params.get_curve(name)
     ctx = c.fp_ctx if which == "p" else c.q_ctx
+    k = ctx.k
     rng = np.random.RandomState(71)
     m = ctx.p_int
     n = 4099                                   # ragged edge
-    a = nn.upload(nn.batch_to_limbs([0, 1, m - 1] + _ints(rng, n - 3, m), 8),
-                  dev)
-    b = nn.upload(nn.batch_to_limbs([m - 1] * 3 + _ints(rng, n - 3, m), 8),
-                  dev)
+    a = nn.upload(nn.batch_to_limbs([0, 1, m - 1, m - 1]
+                                    + _ints(rng, n - 4, m), k), dev)
+    b = nn.upload(nn.batch_to_limbs([m - 1] * 3 + [m - 2]
+                                    + _ints(rng, n - 4, m), k), dev)
+    names = [kernel_name("mont_mul", k), kernel_name("mont_sqr", k)]
     before = dict(mont.launches)
     assert torch.equal(mont.mont_mul(a, b, ctx), nn.mont_mul(a, b, ctx))
     assert torch.equal(mont.mont_sqr(a, ctx), nn.mont_sqr(a, ctx))
-    assert mont.launches["mont_mul"] == before["mont_mul"] + 1
-    assert mont.launches["mont_sqr"] == before["mont_sqr"] + 1
+    for name_k in names:
+        assert mont.launches[name_k] == before[name_k] + 1
 
 
-@pytest.mark.parametrize("name", ["P-256", "SECP256K1", "BRAINPOOLP256R1"])
+@pytest.mark.parametrize("name", ["P-256", "SECP256K1", "BRAINPOOLP256R1",
+                                  "P-384", "BRAINPOOLP512R1", "GOST512"])
 def test_point_kernels_match_plain(dev, name):
     c = params.get_curve(name)
+    k = c.fp_ctx.k
     rng = np.random.RandomState(72)
-    A, B = _points(c, rng, 777, dev), _points(c, rng, 777, dev)
+    A, B = _point_pairs(c, rng, 777, dev)
+    before = dict(point.launches)
     got = point.point_add(c, A, B)
     want = point.point_add_plain(c, A, B)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     got = point.point_dbl(c, A)
     want = point.point_dbl_plain(c, A)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for base in ("point_add", "point_dbl"):
+        assert point.launches[kernel_name(base, k)] == before[
+            kernel_name(base, k)] + 1
+    assert sum(point.launches.values()) == sum(before.values()) + 2
 
 
-@pytest.mark.parametrize("name", ["P-256", "SECP256K1"])
+@pytest.mark.parametrize("name", ["P-256", "SECP256K1", "P-384",
+                                  "BRAINPOOLP512R1", "GOST512"])
 def test_windowed_kernel_matches_plain(dev, name):
+    """Kernel 4 (64, 96 or 128 windows): the identity point (lanes 1 and
+    2), scalars whose last add is T + O, -T + T and T + T
+    (hostref.window_edge_scalars), short ones and random ones; the first
+    lanes also against the host oracle."""
     c = params.get_curve(name)
     rng = np.random.RandomState(73)
     n = 300
-    P = _points(c, rng, n, dev)
-    ms = [0, 1, 2, 1 << 100] + _ints(rng, n - 4, c.q)
-    mt = nn.upload(nn.batch_to_limbs(ms, 8), dev)
+    P, _ = _point_pairs(c, rng, n, dev)
+    ms = H.window_edge_scalars(c.q) + [2, 1 << 100]
+    ms += _ints(rng, n - len(ms), c.q)
+    mt = nn.upload(nn.batch_to_limbs(ms, c.q_ctx.k), dev)
     table = scalar_mul._build_mul_table(c, P)
-    digs = scalar_mul._window_digits(mt, 256)
+    digs = scalar_mul._window_digits(mt, c.scalar_bits())
+    assert digs.shape[0] == -(-c.scalar_bits() // 4)
+    name_k = megamul._KERNELS[(c.fp_ctx.k, "w", 1)][0]
+    before = megamul.launches[name_k]
     got = megamul.windowed_mul(c, table, digs, PrjPoint)
     want = megamul.windowed_mul_plain(c, table, digs, PrjPoint)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert megamul.launches[name_k] == before + 1
+    p = c.fp_ctx.p_int
+    X, Y, Z = [c.fp_ctx.to_ints(v[:, :8]) for v in got]
+    PX, PY, PZ = [c.fp_ctx.to_ints(v[:, :8]) for v in P]
+    for i in range(8):
+        base = None if PZ[i] == 0 else (PX[i] * pow(PZ[i], -1, p) % p,
+                                        PY[i] * pow(PZ[i], -1, p) % p)
+        got_i = None if Z[i] == 0 else (X[i] * pow(Z[i], -1, p) % p,
+                                        Y[i] * pow(Z[i], -1, p) % p)
+        assert got_i == H.ec_mul(_host(c), ms[i], base), i
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    c = params.get_curve("P-384")                      # K = 12
+    c = params.get_curve("P-521")                      # K = 17
     a = c.fp_ctx.from_ints([1, 2], dev)
     with pytest.raises(ValueError):
         mont.mont_mul(a, a, c.fp_ctx)
@@ -263,15 +323,11 @@ def test_straus_kernels_match_plain(dev, name):
 
 # -- Ed448: kernels 1, 8a, 8b and 7 at K = 14 (a = 1) ----------------------
 
-def _ints448(rng, n, mod):
-    return [int.from_bytes(rng.bytes(64), "big") % mod for _ in range(n)]
-
-
 def _ed448_pairs(c, rng, n, dev):
     """Edge lanes P + O, O + Q, O + O, P = Q, P = -Q, then random ones."""
     p = c.fp_ctx.p_int
     hc = H.EdCurve(p, c.a, c.d, c.gx, c.gy, c.q, c.h)
-    base = [H.ed_base_mul(hc, k) for k in _ints448(rng, 16, c.q)]
+    base = [H.ed_base_mul(hc, k) for k in _ints(rng, 16, c.q)]
     a_pts = [base[i % 16] for i in range(n)]
     b_pts = [base[(7 * i + 3) % 16] for i in range(n)]
     b_pts[0] = a_pts[1] = a_pts[2] = b_pts[2] = (0, 1)
@@ -290,9 +346,9 @@ def test_mont_kernels_k14_match_plain(dev, which):
     m = ctx.p_int
     n = 4099                                   # ragged edge
     a = nn.upload(nn.batch_to_limbs([0, 1, m - 1, m - 1]
-                                    + _ints448(rng, n - 4, m), 14), dev)
+                                    + _ints(rng, n - 4, m), 14), dev)
     b = nn.upload(nn.batch_to_limbs([m - 1] * 3 + [m - 2]
-                                    + _ints448(rng, n - 4, m), 14), dev)
+                                    + _ints(rng, n - 4, m), 14), dev)
     before = dict(mont.launches)
     assert torch.equal(mont.mont_mul(a, b, ctx), nn.mont_mul(a, b, ctx))
     assert torch.equal(mont.mont_sqr(a, ctx), nn.mont_sqr(a, ctx))
@@ -324,7 +380,7 @@ def test_ed_windowed_kernel_k14_matches_plain(dev):
     rng = np.random.RandomState(80)
     n = 300
     P, _ = _ed448_pairs(c, rng, n, dev)
-    ms = [0, 1, 2, 1 << 100, 0, c.q - 1] + _ints448(rng, n - 6, c.q)
+    ms = [0, 1, 2, 1 << 100, 0, c.q - 1] + _ints(rng, n - 6, c.q)
     mt = nn.upload(nn.batch_to_limbs(ms, 14), dev)
     table = scalar_mul._build_mul_table(c, P)
     digs = scalar_mul._window_digits(mt, c.scalar_bits())
@@ -364,3 +420,43 @@ def test_ed_wrappers_refuse_other_k_and_a(dev):
     digs = torch.zeros((112, 3), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):                    # 6-ed: K = 8 only
         megamul.straus_mul(e448, tab, digs, tab, digs, ExtPoint)
+
+
+# -- the wide instances refuse another a -------------------------------------
+
+def test_wide_wrappers_refuse_other_a(dev):
+    """(K = 16, a = -3) and (K = 12, generic a) raise on the card: the wide
+    kernels 2-4 are built for (K = 12, a = -3) and (K = 16, generic a)
+    only, and kernels 5 and 6 for K = 8 only. The C entry points refuse
+    another a themselves (cudaErrorInvalidValue)."""
+    import ctypes
+    t1 = params.get_curve("BRAINPOOLP512T1")           # K = 16, a = -3
+    r384 = params.get_curve("BRAINPOOLP384R1")         # K = 12, generic a
+    for cv in (t1, r384):
+        k = cv.fp_ctx.k
+        one = cv.fp_ctx.from_ints([1, 2, 3], dev)
+        P = PrjPoint(one, one, one)
+        with pytest.raises(ValueError, match="built for"):
+            point.point_add(cv, P, P)
+        with pytest.raises(ValueError, match="built for"):
+            point.point_dbl(cv, P)
+        tab = torch.zeros((16, 3, k, 3), dtype=torch.int32, device=dev)
+        digs = torch.zeros((-(-cv.scalar_bits() // 4), 3), dtype=torch.int32,
+                           device=dev)
+        with pytest.raises(ValueError, match="built for"):
+            megamul.windowed_mul(cv, tab, digs, PrjPoint)
+        outs = [torch.empty_like(one) for _ in range(3)]
+        rc = getattr(point._lib("point_wide"), f"point_add_k{k}")(
+            ctypes.byref(point.curve_struct(cv)),
+            point.ptr_array([*P, *P]), point.ptr_array(outs), 3,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        assert rc != 0
+    c = params.get_curve("BRAINPOOLP512R1")
+    one = c.fp_ctx.from_ints([1, 2, 3], dev)
+    P = PrjPoint(one, one, one)
+    with pytest.raises(ValueError):                    # 5: K = 8 only
+        point.point_dbln_add(c, P, P, 2)
+    tab = torch.zeros((16, 3, 16, 3), dtype=torch.int32, device=dev)
+    digs = torch.zeros((128, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                    # 6: K = 8 only
+        megamul.straus_mul(c, tab, digs, tab, digs, PrjPoint)

@@ -86,6 +86,6 @@ def test_batch_digests_buckets_mixed_lengths():
         hashlib.sha512(m).digest() for m in msgs]
     assert common.batch_digests("SHA-512", [], "cpu") == []
     with pytest.raises(ValueError):
-        common.batch_digests("SHA256", msgs, "cpu")
+        common.batch_digests("SM3", msgs, "cpu")
     with pytest.raises(ValueError):
         sha2.pack_blocks_sha512([b"a", b"b" * 120])

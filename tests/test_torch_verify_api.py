@@ -80,7 +80,7 @@ def test_verify_batches_pipeline(fx):
     with pytest.raises(ValueError):
         next(ecdsa.verify_batches(kb, [(msgs, sigs[:-1] + [b"\x01" * 63])]))
     with pytest.raises(ValueError):
-        ecdsa.verify_batch(kb, msgs, sigs, hash_name="SHA3_256")
+        ecdsa.verify_batch(kb, msgs, sigs, hash_name="SM3")
 
 
 def test_entry_points_default_to_the_card():
