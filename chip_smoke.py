@@ -5,16 +5,21 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
+The script imports the package from its own directory, so it may also be
+started by its path from another directory; alone, without the package
+beside it, it exits 2 at once and says so.
+
 It builds the port's CUDA kernels from libecc_tpu_torch/csrc with nvcc,
 checks each kernel bitwise against its plain PyTorch version on the card,
 and drives these paths at batch 8192, bytes in:
 
 1. batched ECDSA verification on P-256 (K = 8 kernels), P-384 (K = 12,
-   a = -3), BrainpoolP512r1 and GOST512 (K = 16, generic a), through
-   verify_batch, verify_digests_batch, verify_batch_async and
-   verify_batches (accept mask out), with the P-256 and P-384 Wycheproof
-   rows and the P-384 and BrainpoolP512r1 KAT rows under SHA-224/256/
-   384/512 and SHA3-384;
+   a = -3), BrainpoolP512r1 and GOST512 (K = 16, generic a) and P-521
+   (K = 17, a = -3, hashed with SHA-512), through verify_batch,
+   verify_digests_batch, verify_batch_async and verify_batches (accept
+   mask out), with the P-256 and P-384 Wycheproof rows and the P-384,
+   BrainpoolP512r1 and P-521 KAT rows under SHA-224/256/384/512 and
+   SHA3-384/512;
 2. batched Ed25519 verification, through eddsa.verify_batch (accept mask
    out);
 3. batched Ed448 verification (K = 14 kernels, a = 1), through
@@ -23,7 +28,12 @@ and drives these paths at batch 8192, bytes in:
 4. batch verification (one accept for the whole batch), through
    batch_verify.ecfsdsa_verify_batch (P-256), bip0340_verify_batch
    (secp256k1) and eddsa_verify_batch (Ed25519), and the joint-table
-   Straus straus_double_mul_public beside the separate-table one.
+   Straus straus_double_mul_public beside the separate-table one;
+5. batch verification on the large-K curves: ecfsdsa_verify_batch on
+   P-384 (SHA-384, kernel 6 at K = 12) and BrainpoolP512r1 (SHA-512,
+   kernel 6 at K = 16), eddsa_verify_batch("ed448" and "ed448ph",
+   kernel 6-ed at K = 14), with the ECFSDSA and Ed448 KAT rows as
+   batches.
 
 For each path it checks the results (valid lanes or batches, corrupted
 ones, the Wycheproof and KAT rows), counts the kernel launches of the
@@ -78,25 +88,38 @@ ED448_PER_WINDOW = (16, 26)             # the same with add-2008-hwcd (a = 1)
 ED448_ADD_PRODUCTS = 10                 # add-2008-hwcd: one product more
 STRAUS_PER_WINDOW = (22, 44)            # kernel 6: one more complete add
 ED_STRAUS_PER_WINDOW = (16, 34)         # kernel 6-ed: one more extended add
+GENERIC_STRAUS_PER_WINDOW = (30, 52)    # kernel 6 for generic a
+ED448_STRAUS_PER_WINDOW = (16, 36)      # kernel 6-ed with add-2008-hwcd
 JOINT_NDBL = 2                          # the joint Straus step: 2^2*acc + T
 # ECDSA on K = 12 (a = -3) and K = 16 (generic a)
 GENERIC_PER_WINDOW = (30, 34)          # the same for generic a (w = 4)
 # the ECDSA paths: curve -> label (P-256 at K = 8, P-384 at K = 12, the
-# 512-bit curves at K = 16), and the curves with Wycheproof rows
+# 512-bit curves at K = 16, P-521 at K = 17), the hash of each path's
+# fixture and batch (SHA-256 unless named: P-521 with SHA-512, as JWS
+# ES512), and the curves with Wycheproof rows
 W_CURVES = {"SECP256R1": "P-256", "SECP384R1": "P-384",
-            "BRAINPOOLP512R1": "BrainpoolP512r1", "GOST512": "GOST512"}
+            "BRAINPOOLP512R1": "BrainpoolP512r1", "GOST512": "GOST512",
+            "SECP521R1": "P-521"}
+W_HASH = {"SECP521R1": "SHA512"}
 W_WYCHEPROOF = ("SECP256R1", "SECP384R1")
-# kernels 1-4: base name -> (source at K = 8, at K = 12 and 16, the TPU
-# kernel in libecc_tpu/ops/pallas)
+# kernels 1-4: base name -> (the TPU kernel in libecc_tpu/ops/pallas, the
+# source of each K's instance)
+_WIDE_POINT = {8: "point.cu", 12: "point_wide.cu", 16: "point_wide.cu",
+               17: "point_p521.cu"}
 W_KERNELS = {
-    "mont_mul": ("mont.cu", "mont.cu", "mont.py:297"),
-    "mont_sqr": ("mont.cu", "mont.cu", "mont.py:297"),
-    "point_add": ("point.cu", "point_wide.cu", "point.py:470"),
-    "point_dbl": ("point.cu", "point_wide.cu", "point.py:489"),
-    "windowed_mul": ("windowed.cu", "windowed_wide.cu", "megamul.py:161"),
+    "mont_mul": ("mont.py:297", dict.fromkeys(_WIDE_POINT, "mont.cu")),
+    "mont_sqr": ("mont.py:297", dict.fromkeys(_WIDE_POINT, "mont.cu")),
+    "point_add": ("point.py:470", _WIDE_POINT),
+    "point_dbl": ("point.py:489", _WIDE_POINT),
+    "windowed_mul": ("megamul.py:161", {
+        8: "windowed.cu", 12: "windowed_wide.cu", 16: "windowed_wide.cu",
+        17: "windowed_p521.cu"}),
 }
-VEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                   "vectors")
+# this script's directory: the root of a checkout (__file__ is unset when
+# the script is piped on standard input; the directory is then the cwd)
+HERE = os.path.dirname(os.path.abspath(globals().get("__file__",
+                                                     "chip_smoke.py")))
+VEC = os.path.join(HERE, "tests", "vectors")
 
 
 def _fail(msg: str):
@@ -219,6 +242,12 @@ def _device_ms(torch, fn, reps: int, event_ms: float):
 
 
 def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "libecc_tpu_torch")):
+        print(f"chip_smoke: the package libecc_tpu_torch is not beside the "
+              f"script in {HERE}; run the script from a checkout of the "
+              "repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -236,6 +265,11 @@ def main() -> int:
         keys as K_
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def lap(what):
+        print(f"elapsed: {time.perf_counter() - t_start:.1f} s at the end of "
+              f"{what}")
     timer = Timer(torch)
 
     # 1. the card -------------------------------------------------------
@@ -430,6 +464,8 @@ def main() -> int:
                f"kernel 1 at K = {k_}{where} disagrees with Python integers")
         return errs
 
+    lap("the build")
+
     # 3. ECDSA verify on the short-Weierstrass curves: P-256 (K = 8,
     # a = -3), P-384 (K = 12, a = -3), BrainpoolP512r1 and GOST512 (K = 16,
     # generic a) ----------------------------------------------------------
@@ -467,13 +503,15 @@ def main() -> int:
         return (ctx_.to_ints(P.x[:, i:i + 1])[0] * zi % pc,
                 ctx_.to_ints(P.y[:, i:i + 1])[0] * zi % pc)
 
-    def check_w_kernels(cv, cw, label):
+    def check_w_kernels(cv, cw, label, compare):
         """Kernels 1-4 of one curve against their plain versions, bitwise,
         and their first lanes against the host oracle: kernel 1 under p and
         q; kernels 2 and 3 with the lanes P + O, O + Q, O + O, P = Q and
-        P = -Q; kernel 4 with the window edge scalars, two short scalars
-        and the identity on lane 7. Returns the point pairs (affine A, B
-        and projective PA, PB) of kernels 2 and 3."""
+        P = -Q; kernel 4 at N lanes with the window edge scalars, two short
+        scalars and the identity on lane 7 (against its plain version here
+        with compare, else in the kernel's timed row, on the same inputs).
+        Returns the point pairs (affine A, B and projective PA, PB) of
+        kernels 2 and 3 and kernel 4's table and digits."""
         names = w_names(cv.fp_ctx.k)
         check_mont(cv.fp_ctx, f"{label}'s p")
         check_mont(cv.q_ctx, f"{label}'s q")
@@ -495,50 +533,51 @@ def main() -> int:
             _check(affine_of(cv, D, i) == H.ec_add(cw, A[i], A[i]),
                    f"{names['point_dbl']} ({label}) lane {i} disagrees with "
                    "the host oracle")
-        wpts = w_points(cv, cw, WINDOWED_N)
+        wpts = w_points(cv, cw, N)
         wpts[7] = None
         ms = H.window_edge_scalars(cv.q) + [5, (1 << 37) + 3]
-        ms += rand_ints(WINDOWED_N - len(ms), cv.q)
+        ms += rand_ints(N - len(ms), cv.q)
         table = scalar_mul._build_mul_table(cv, projective(cv, wpts))
         digs = scalar_mul._window_digits(
             nn.upload(nn.batch_to_limbs(ms, cv.q_ctx.k), dev),
             cv.scalar_bits())
         name = names["windowed_mul"]
-        t0 = time.perf_counter()
-        want = megamul.windowed_mul_plain(cv, table, digs, PrjPoint)
-        print(f"{name} plain ({label}) at N={WINDOWED_N}: "
-              f"{time.perf_counter() - t0:.1f} s")
         got = megamul.windowed_mul(cv, table, digs, PrjPoint)
-        cmp(name, got, want, WINDOWED_N, f" ({label}, {digs.shape[0]} "
-                                         "windows)")
+        if compare:
+            t0 = time.perf_counter()
+            want = megamul.windowed_mul_plain(cv, table, digs, PrjPoint)
+            print(f"{name} plain ({label}) at N={N}: "
+                  f"{time.perf_counter() - t0:.1f} s")
+            cmp(name, got, want, N, f" ({label}, {digs.shape[0]} windows)")
         for i in range(8):
             _check(affine_of(cv, got, i) == H.ec_mul(cw, ms[i], wpts[i]),
                    f"{name} ({label}) lane {i} disagrees with the host "
                    "oracle")
-        return A, B, PA, PB
+        return A, B, PA, PB, (table, digs)
 
-    def ecdsa_fixture(cv, cw, label):
-        """UNIQUE signatures from the host signer (SHA-256 of 32-byte
+    def ecdsa_fixture(cv, cw, label, hname):
+        """UNIQUE signatures from the host signer (hash hname of 32-byte
         messages) tiled to the batch, their key batch, and the corrupted
         batch: r + 1, s = 0, s = q, another message, r = q, and r below
         p - q (the r + q candidate is tried and rejects) on lanes 0-59,
         and a key batch with off-curve keys on lanes 60-69."""
         qv, pc = cv.q, cv.fp_ctx.p_int
         nbq = (qv.bit_length() + 7) // 8
+        digest = getattr(hashlib, hname.lower())
         t0 = time.perf_counter()
         ds = [1 + v % (qv - 1) for v in rand_ints(UNIQUE, qv)]
         pubs = [H.ec_base_mul(cw, d) for d in ds]
         msgs = [rng.bytes(32) for _ in range(UNIQUE)]
         sigs = []
         for d, msg in zip(ds, msgs):
-            e = H.trunc_msb_mod_q(hashlib.sha256(msg).digest(), qv)
+            e = H.trunc_msb_mod_q(digest(msg).digest(), qv)
             r, s = H.ecdsa_sign_ref(cw, d, e, 1 + rand_ints(1, qv - 1)[0])
             sigs.append(r.to_bytes(nbq, "big") + s.to_bytes(nbq, "big"))
         pubs, msgs, sigs = pubs * reps, msgs * reps, sigs * reps
         kb = K_.pubkey_batch_from_affine_ints(
             cv, "ECDSA", [P_[0] for P_ in pubs], [P_[1] for P_ in pubs])
-        print(f"{label} fixture: {UNIQUE} unique host signatures tiled to "
-              f"{BATCH} in {time.perf_counter() - t0:.1f} s")
+        print(f"{label} fixture: {UNIQUE} unique host signatures ({hname}) "
+              f"tiled to {BATCH} in {time.perf_counter() - t0:.1f} s")
         bad_m, bad_s = list(msgs), list(sigs)
 
         def put(i, r=None, s=None):
@@ -567,6 +606,7 @@ def main() -> int:
         want_off = np.ones(BATCH, bool)
         want_off[off] = False
         return SimpleNamespace(
+            hname=hname, digest=digest,
             kb=kb, msgs=msgs, sigs=sigs, bad_m=bad_m, bad_s=bad_s,
             want_bad=want_bad, want_off=want_off,
             kb_off=K_.KeyBatch(curve=cv, alg="ECDSA", n=BATCH, pub=bad_pub))
@@ -575,28 +615,31 @@ def main() -> int:
         """The four ECDSA entry points on the valid, the corrupted and the
         off-curve batches, the counts set to 0 first. Returns the launches
         of this run; each of kernels 1-4 must be among them."""
+        hn = fx.hname
         reset()
-        acc = ecdsa.verify_batch(fx.kb, fx.msgs, fx.sigs)
+        acc = ecdsa.verify_batch(fx.kb, fx.msgs, fx.sigs, hn)
         _check(acc.all(), f"{label}: verify_batch rejected "
                           f"{int((~acc).sum())} valid lanes")
-        acc = ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs)
+        acc = ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs, hn)
         _check(acc.device.type == "cuda" and bool(acc.all()),
                f"{label}: verify_batch_async rejected valid lanes")
-        bad_digs = [hashlib.sha256(m_).digest() for m_ in fx.bad_m]
+        bad_digs = [fx.digest(m_).digest() for m_ in fx.bad_m]
         for what, acc, want in (
                 ("verify_batch", ecdsa.verify_batch(fx.kb, fx.bad_m,
-                                                    fx.bad_s), fx.want_bad),
+                                                    fx.bad_s, hn),
+                 fx.want_bad),
                 ("verify_batch_async", ecdsa.verify_batch_async(
-                    fx.kb, fx.bad_m, fx.bad_s).cpu().numpy(), fx.want_bad),
+                    fx.kb, fx.bad_m, fx.bad_s, hn).cpu().numpy(),
+                 fx.want_bad),
                 ("verify_digests_batch", ecdsa.verify_digests_batch(
-                    fx.kb, bad_digs, fx.bad_s), fx.want_bad),
+                    fx.kb, bad_digs, fx.bad_s, hn), fx.want_bad),
                 ("verify_batch (off-curve keys)", ecdsa.verify_batch(
-                    fx.kb_off, fx.msgs, fx.sigs), fx.want_off)):
+                    fx.kb_off, fx.msgs, fx.sigs, hn), fx.want_off)):
             _check((acc == want).all(),
                    f"{label}: {what}: corrupted lanes wrong "
                    f"({np.flatnonzero(acc != want)[:20].tolist()})")
         stream = [(fx.msgs, fx.sigs), (fx.bad_m, fx.bad_s)] * 2
-        outs = list(ecdsa.verify_batches(fx.kb, stream, depth=3))
+        outs = list(ecdsa.verify_batches(fx.kb, stream, hn, depth=3))
         expect = [np.ones(BATCH, bool), fx.want_bad] * 2
         _check(len(outs) == 4 and all((o == w).all()
                                       for o, w in zip(outs, expect)),
@@ -607,10 +650,10 @@ def main() -> int:
         for name in w_names(cv.fp_ctx.k).values():
             _check(path[name] >= 1,
                    f"kernel {name} was not launched on the {label} path")
-        print(f"{label} path: valid lanes accept; r + 1, s = 0, s = q, "
-              "another message, r = q, r < p - q and off-curve keys reject "
-              "(verify_batch, verify_batch_async, verify_digests_batch, "
-              "verify_batches)")
+        print(f"{label} path ({hn}): valid lanes accept; r + 1, s = 0, "
+              "s = q, another message, r = q, r < p - q and off-curve keys "
+              "reject (verify_batch, verify_batch_async, "
+              "verify_digests_batch, verify_batches)")
         return path
 
     def wycheproof_ecdsa(cv, cname, label):
@@ -669,12 +712,12 @@ def main() -> int:
               "well-formed rows also through the fused bytes-in path, "
               "tiled to 64 lanes")
 
-    def w_kern(cv, PA, PB, marked):
+    def w_kern(cv, PA, PB, wtab):
         """Kernels 1-4 of a curve at its path's shapes (N = 8192): kernel 1
-        on random operands, 2 and 3 on the edge lanes, 4 on the verify
-        batch's own table and digits. Each entry: the kernel, its plain
-        version, their repetitions, and the bytes and multiply-add slots
-        of the work."""
+        on random operands, 2 and 3 on the edge lanes, 4 on check_w_kernels'
+        table and digits (edge scalars among them). Each entry: the kernel,
+        its plain version, their repetitions, and the bytes and multiply-add
+        slots of the work."""
         ctx_, k_ = cv.fp_ctx, cv.fp_ctx.k
         fe, fmul, fsqr = 4 * k_, fmul_slots(k_), fsqr_slots(k_)
         # per window (squares, products); an add's and a double's products
@@ -682,7 +725,7 @@ def main() -> int:
         add_mu, dbl_mu = (14, 10) if cv.a_is_m3 else (18, 14)
         a_ = nn.upload(nn.batch_to_limbs(rand_ints(N, ctx_.p_int), k_), dev)
         b_ = nn.upload(nn.batch_to_limbs(rand_ints(N, ctx_.p_int), k_), dev)
-        tab, digs = marked["table"]
+        tab, digs = wtab
         nwin = digs.shape[0]
         names = w_names(k_)
         return {
@@ -714,7 +757,8 @@ def main() -> int:
     # stage breakdown from the stage marks and the profiler's busy share)
     # and each kernel at the path's shapes. GOST512 runs BrainpoolP512r1's
     # K = 16 instances: their rows are timed on BrainpoolP512r1's path and
-    # carry GOST512's launches beside.
+    # carry GOST512's launches beside. P-521's batch is hashed with SHA-512
+    # (the unfused path: "digest" where the fused one marks "hash").
     w_curves, w_counts, w_report = {}, {}, {}
     for cname, label in W_CURVES.items():
         cv = params.get_curve(cname)
@@ -726,18 +770,23 @@ def main() -> int:
         print(f"{label} comb: {comb_.shape[0]} windows x 256 entries, "
               f"{comb_bytes} bytes on the device, first build {comb_s:.2f} s "
               "(cached for the process)")
-        A, B, PA, PB = check_w_kernels(cv, cw, label)
+        # GOST512's kernel 4 is compared here; the others' in their rows
+        A, B, PA, PB, wtab = check_w_kernels(cv, cw, label,
+                                             cname == "GOST512")
         w_curves[cname] = (cv, cw, A, B, PA, PB)
-        fx = ecdsa_fixture(cv, cw, label)
+        hname = W_HASH.get(cname, "SHA256")
+        fx = ecdsa_fixture(cv, cw, label, hname)
         w_counts[cname] = ecdsa_entry_points(cv, fx, label)
         if cname in W_WYCHEPROOF:
             wycheproof_ecdsa(cv, cname, label)
-        rep, marked = time_batch(
-            lambda: ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs),
-            f"{label} ECDSA verify", ["hash", "scalars", "key on curve",
+        first = "hash" if hname in ecdsa.FUSED_HASHES else "digest"
+        rep, _ = time_batch(
+            lambda: ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs, hname),
+            f"{label} ECDSA verify", [first, "scalars", "key on curve",
                                       "comb", "table", "windowed", "accept",
                                       "return"],
             lambda acc_: bool(acc_.all()))
+        rep["hash"] = hname
         rep["comb_bytes"] = comb_bytes
         rep["comb_first_build_s"] = round(comb_s, 3)
         w_report[cname] = rep
@@ -755,34 +804,36 @@ def main() -> int:
         if cname == "GOST512":
             continue
         for base, name in w_names(cv.fp_ctx.k).items():
-            src8, src_wide, tpu = W_KERNELS[base]
-            source[name] = src8 if cv.fp_ctx.k == 8 else src_wide
+            tpu, srcs = W_KERNELS[base]
+            source[name] = srcs[cv.fp_ctx.k]
             replaces[name] = f"libecc_tpu/ops/pallas/{tpu}"
-        time_kernels(w_kern(cv, PA, PB, marked), w_counts[cname],
+        time_kernels(w_kern(cv, PA, PB, wtab), w_counts[cname],
                      rep["launches_per_batch"], f"{label} ECDSA verify")
     for row in lines:
-        if row["name"] in w_names(16).values():
+        if row["name"] in [*w_names(16).values(), *w_names(17).values()]:
             # the large-K body backend these instances stand for
             row["also_replaces"] = "libecc_tpu/ops/pallas/rows.py:129"
+        if row["name"] in w_names(16).values():
             row["gost512_launches"] = w_counts["GOST512"][row["name"]]
-    print("ECDSA verify: kernels 1-4 at K = 8 (P-256), K = 12 (P-384) and "
-          "K = 16 (BrainpoolP512r1 and GOST512) are bitwise equal to their "
-          "plain versions and agree with the host oracle")
+    print("ECDSA verify: kernels 1-4 at K = 8 (P-256), K = 12 (P-384), "
+          "K = 16 (BrainpoolP512r1 and GOST512) and K = 17 (P-521) are "
+          "bitwise equal to their plain versions and agree with the host "
+          "oracle")
 
-    # the KAT rows on the card: the P-384 and BrainpoolP512r1 ECDSA and
-    # DECDSA rows under every hash they name
+    # the KAT rows on the card: the P-384, BrainpoolP512r1 and P-521 ECDSA
+    # and DECDSA rows under every hash they name
+    kat_curves = ("SECP384R1", "BRAINPOOLP512R1", "SECP521R1")
     kat_groups = {}
     with open(os.path.join(VEC, "kats_full.jsonl")) as f:
         for r in map(json.loads, f):
             if r.get("alg") in ("ECDSA", "DECDSA") and r.get("curve") in (
-                    "SECP384R1", "BRAINPOOLP512R1"):
+                    kat_curves):
                 kat_groups.setdefault((r["curve"], r["hash"]), []).append(
                     (bytes.fromhex(r["pub"]), bytes.fromhex(r["msg_hex"]),
                      bytes.fromhex(r["sig"])))
     with open(os.path.join(VEC, "sig_kats.jsonl")) as f:
         for r in map(json.loads, f):
-            if r["alg"] in ("ECDSA", "DECDSA") and r["curve"] in (
-                    "SECP384R1", "BRAINPOOLP512R1"):
+            if r["alg"] in ("ECDSA", "DECDSA") and r["curve"] in kat_curves:
                 kat_groups.setdefault((r["curve"], r["hash"]), []).append(
                     (bytes.fromhex(r["pub"]), r["msg"].encode(),
                      bytes.fromhex(r["sig"])))
@@ -806,11 +857,16 @@ def main() -> int:
         _check(acc.tolist() == want_, f"KAT rows {cname} {hname}: wrong "
                                       f"accept mask {acc.tolist()}")
         n_kat += len(krows)
-    print(f"ECDSA KATs: {n_kat} ECDSA / DECDSA rows of P-384 and "
-          f"BrainpoolP512r1 under {sorted({h for _, h in kat_groups})} "
-          "accept, and reject with another message or a flipped bit")
+    n_p521 = sum(len(v) for (cn, _), v in kat_groups.items()
+                 if cn == "SECP521R1")
+    _check(n_p521 == 11, f"expected 11 SECP521R1 KAT rows, got {n_p521}")
+    print(f"ECDSA KATs: {n_kat} ECDSA / DECDSA rows of P-384, "
+          f"BrainpoolP512r1 and P-521 ({n_p521}) under "
+          f"{sorted({h for _, h in kat_groups})} accept, and reject with "
+          "another message or a flipped bit")
     c, wc, A, B, PA, PB = w_curves["SECP256R1"]
-    q = c.q
+
+    lap("the ECDSA paths")
 
     # 4. the Ed25519 path: kernels 1 (under p = 2^255 - 19), 8a, 8b and 7
     # against their plain versions, then eddsa.verify_batch at batch 8192 --
@@ -1011,6 +1067,8 @@ def main() -> int:
             row["ed25519"] = {"launches": ed_counts[name],
                               "launches_per_batch": e_per_batch[name], **m}
             row["max_abs_err"] = results[name]["max_abs_err"]
+
+    lap("the Ed25519 path")
 
     # 5. the Ed448 path (K = 14, a = 1): kernels 1, 8a, 8b and 7 at K = 14
     # against their plain versions, then eddsa.verify_batch("ed448") at
@@ -1239,8 +1297,12 @@ def main() -> int:
             "max_abs_err": results[name]["max_abs_err"],
             "library_ms": None})
 
-    # 6. batch verification: kernels 5, 8c, 6 and 6-ed against their plain
-    # versions, then the three batch entry points at 8192 signatures ------
+    lap("the Ed448 path")
+
+    # 6. batch verification: kernels 5, 8c, 6 (K = 8, 12, 16) and 6-ed
+    # (K = 8, 14) against their plain versions, then the batch entry points
+    # at 8192 signatures: ECFSDSA on P-256, P-384 and BrainpoolP512r1,
+    # BIP0340 on secp256k1, EdDSA on Ed25519, Ed448 and Ed448ph ----------
     k1 = params.get_curve("SECP256K1")
     k1w = H.WCurve(k1.fp_ctx.p_int, k1.a, k1.b, k1.gx, k1.gy, k1.q)
     for nd in (0, JOINT_NDBL, 4):                   # the identity, P = +-Q lanes
@@ -1257,40 +1319,70 @@ def main() -> int:
                                                  EB[i]),
                f"ed_dbln_add lane {i} disagrees with the host oracle")
 
-    def straus_scalars(order):
-        us, vs = rand_ints(POINT_N, order), rand_ints(POINT_N, order)
-        us[0] = vs[0] = us[1] = vs[2] = 0               # zero scalars
-        us[3], vs[3], us[4] = 1, 5, (1 << 37) + 3       # short ones
-        return us, vs, (nn.upload(nn.batch_to_limbs(us, 8), dev),
-                        nn.upload(nn.batch_to_limbs(vs, 8), dev))
-
-    su, sv, (sut, svt) = straus_scalars(q)
-    eu, evs, (eut, evt) = straus_scalars(eq)
-    straus_in = {"straus_mul": (c, PA, PB, sut, svt, PrjPoint),
-                 "straus_mul_ed": (ec, XA, XB, eut, evt, ExtPoint)}
-    straus_out = {}
-    for name, (cv, P1, P2, ut, vt, cls) in straus_in.items():
-        nbits = cv.scalar_bits()
+    def straus_check(cv, hcv, P1, P2, cls, label, compare):
+        """Kernel 6 or 6-ed of cv on the N lanes of P1 and P2 (identity,
+        P = Q and P = -Q lanes among them): zero and short scalars, the
+        window edge scalars in u and, two lanes on, in v; the special lanes
+        against the host oracle's u*P + v*Q (hcv: the host curve) and, with
+        compare, every lane bitwise against the plain version (else the
+        special lanes go into a batch path's tables, on which the kernel's
+        row is timed and compared). Returns the scalars on the card, the
+        tables and digits, and the number of special lanes."""
+        edges = H.window_edge_scalars(cv.q)
+        us = [0, 0, 1 << 100, 1, (1 << 37) + 3] + edges + [0, 1]
+        vs = [0, 1 << 100, 0, 5, 3, 0, 5] + edges
+        nfix = len(vs)
+        us += rand_ints(N - len(us), cv.q)
+        vs += rand_ints(N - len(vs), cv.q)
+        kq, nbits = cv.q_ctx.k, cv.scalar_bits()
+        ut = nn.upload(nn.batch_to_limbs(us, kq), dev)
+        vt = nn.upload(nn.batch_to_limbs(vs, kq), dev)
         tabs = (scalar_mul._build_mul_table(cv, P1),
                 scalar_mul._window_digits(ut, nbits),
                 scalar_mul._build_mul_table(cv, P2),
                 scalar_mul._window_digits(vt, nbits))
-        t0 = time.perf_counter()
-        want = megamul.straus_mul_plain(cv, *tabs, cls)
-        print(f"{name} plain at N={POINT_N}: "
-              f"{time.perf_counter() - t0:.1f} s")
-        straus_out[name] = megamul.straus_mul(cv, *tabs, cls)
-        cmp(name, straus_out[name], want, POINT_N)
-    for i in range(6):
-        _check(affine_of(c, straus_out["straus_mul"], i) == H.ec_add(
-            wc, H.ec_mul(wc, su[i], A[i]), H.ec_mul(wc, sv[i], B[i])),
-            f"straus_mul lane {i} disagrees with the host oracle")
-        _check(ed_affine_of(straus_out["straus_mul_ed"], i) == H.ed_add(
-            hc, H.ed_mul(hc, eu[i], EA[i]), H.ed_mul(hc, evs[i], EB[i])),
-            f"straus_mul_ed lane {i} disagrees with the host oracle")
+        ed_ = cls is ExtPoint
+        name = megamul._KERNELS[(cv.fp_ctx.k, "ed" if ed_ else "w", 2)][0]
+        got = megamul.straus_mul(cv, *tabs, cls)
+        if compare:
+            t0 = time.perf_counter()
+            want = megamul.straus_mul_plain(cv, *tabs, cls)
+            print(f"{name} plain ({label}) at N={N}: "
+                  f"{time.perf_counter() - t0:.1f} s")
+            cmp(name, got, want, N, f" ({label}, {tabs[1].shape[0]} windows)")
+        for i in range(nfix):
+            if ed_:
+                ok = ed_affine_of(got, i, cv) == H.ed_add(
+                    hcv, H.ed_mul(hcv, us[i], ed_affine_of(P1, i, cv)),
+                    H.ed_mul(hcv, vs[i], ed_affine_of(P2, i, cv)))
+            else:
+                ok = affine_of(cv, got, i) == H.ec_add(
+                    hcv, H.ec_mul(hcv, us[i], affine_of(cv, P1, i)),
+                    H.ec_mul(hcv, vs[i], affine_of(cv, P2, i)))
+            _check(ok, f"{name} ({label}) lane {i} disagrees with the host "
+                       "oracle")
+        return ut, vt, tabs, nfix
 
-    # fixtures: 1024 unique signatures of each scheme from the host
-    # signers, tiled to the batch (Ed25519: the verify path's own)
+    # kernel 6 at K = 8 (a = -3), 12 (a = -3) and 16 (generic a, on
+    # BrainpoolP512r1 and on GOST512's 511-bit p), 6-ed at K = 8 (a = -1)
+    # and 14 (a = 1): label -> (curve, host curve, points, point class).
+    # GOST512 runs BrainpoolP512r1's K = 16 instance, whose row is timed
+    # on BrainpoolP512r1: it is compared with its plain version here.
+    straus_cases = {
+        "P-256": (c, wc, PA, PB, PrjPoint),
+        "Ed25519": (ec, hc, XA, XB, ExtPoint),
+        **{W_CURVES[cn]: (*w_curves[cn][:2], *w_curves[cn][4:], PrjPoint)
+           for cn in ("SECP384R1", "BRAINPOOLP512R1", "GOST512")},
+        "Ed448": (x4, hx, XA4, XB4, ExtPoint),
+    }
+    straus_in = {label: (cv, P1, P2, cls, *straus_check(
+        cv, hcv, P1, P2, cls, label, label == "GOST512"))
+        for label, (cv, hcv, P1, P2, cls) in straus_cases.items()}
+
+    # fixtures: UNIQUE host-signed signatures of each scheme, tiled to the
+    # batch: ECFSDSA on P-256 (SHA-256), P-384 (SHA-384) and
+    # BrainpoolP512r1 (SHA-512), BIP0340 on secp256k1, Ed448ph; Ed25519
+    # and Ed448 take their verify paths' own
     t0 = time.perf_counter()
 
     def w_fixture(cw, sign):
@@ -1300,25 +1392,14 @@ def main() -> int:
         sigs_ = [sign(cw, d, m_) for d, m_ in zip(ds, msgs_)]
         return pubs_ * reps, msgs_ * reps, sigs_ * reps
 
-    f_pubs, f_msgs, f_sigs = w_fixture(wc, lambda cw, d, m_: H.ecfsdsa_sign_ref(
-        cw, d, 1 + rand_ints(1, cw.q - 1)[0], m_))
-    b_pubs, b_msgs, b_sigs = w_fixture(k1w, lambda cw, d, m_: H.bip0340_sign_ref(
-        cw, d, m_, rng.bytes(32)))
-    print(f"batch-verify fixtures: {UNIQUE} unique ECFSDSA and BIP0340 "
-          f"signatures from the host signers, tiled to {BATCH}, in "
-          f"{time.perf_counter() - t0:.1f} s")
-    f_kb = K_.pubkey_batch_from_affine_ints(c, "ECFSDSA",
-                                            [P_[0] for P_ in f_pubs],
-                                            [P_[1] for P_ in f_pubs])
-    b_kb = K_.pubkey_batch_from_affine_ints(k1, "BIP0340",
-                                            [P_[0] for P_ in b_pubs],
-                                            [P_[1] for P_ in b_pubs])
-
     def flip_last(sg):                  # lowest bit of s (big-endian)
         return sg[:-1] + bytes([sg[-1] ^ 1])
 
     def flip_s_ed(sg):                  # lowest bit of S (little-endian)
         return sg[:32] + bytes([sg[32] ^ 1]) + sg[33:]
+
+    def flip_s_448(sg):
+        return sg[:57] + bytes([sg[57] ^ 1]) + sg[58:]
 
     def evil(ms, i=4321):
         ms = list(ms)
@@ -1330,38 +1411,77 @@ def main() -> int:
         ss[i] = fn(ss[i])
         return ss
 
-    paths = {
-        "ecfsdsa_p256": lambda ms, ss: bv.ecfsdsa_verify_batch(f_kb, ms, ss),
-        "bip0340_secp256k1": lambda ms, ss: bv.bip0340_verify_batch(b_kb, ms,
-                                                                    ss),
-        "ed25519": lambda ms, ss: bv.eddsa_verify_batch("ed25519", e_pubs, ms,
-                                                        ss),
-    }
-    inputs = {"ecfsdsa_p256": (f_msgs, f_sigs, flip_last),
-              "bip0340_secp256k1": (b_msgs, b_sigs, flip_last),
-              "ed25519": (e_msgs, e_sigs, flip_s_ed)}
+    def batch_call(fn, keys, hname):
+        return lambda ms, ss: fn(keys, ms, ss, hname)
+
+    paths, inputs = {}, {}
+    for name, cname, hname in (("ecfsdsa_p256", "SECP256R1", "SHA256"),
+                               ("ecfsdsa_p384", "SECP384R1", "SHA384"),
+                               ("ecfsdsa_bp512", "BRAINPOOLP512R1",
+                                "SHA512")):
+        cv, cw = w_curves[cname][:2]
+        pubs_, msgs_, sigs_ = w_fixture(
+            cw, lambda cw_, d, m_, hn=hname: H.ecfsdsa_sign_ref(
+                cw_, d, 1 + rand_ints(1, cw_.q - 1)[0], m_, hn))
+        kb_ = K_.pubkey_batch_from_affine_ints(
+            cv, "ECFSDSA", [P_[0] for P_ in pubs_], [P_[1] for P_ in pubs_])
+        paths[name] = batch_call(bv.ecfsdsa_verify_batch, kb_, hname)
+        inputs[name] = (msgs_, sigs_, flip_last)
+    pubs_, msgs_, sigs_ = w_fixture(k1w, lambda cw, d, m_: H.bip0340_sign_ref(
+        cw, d, m_, rng.bytes(32)))
+    kb_ = K_.pubkey_batch_from_affine_ints(
+        k1, "BIP0340", [P_[0] for P_ in pubs_], [P_[1] for P_ in pubs_])
+    paths["bip0340_secp256k1"] = batch_call(bv.bip0340_verify_batch, kb_,
+                                            "SHA256")
+    inputs["bip0340_secp256k1"] = (msgs_, sigs_, flip_last)
+    ph_pubs, ph_msgs, ph_sigs = [], [], []
+    for _ in range(UNIQUE):
+        seed, msg = rng.bytes(57), rng.bytes(32)
+        pub, sig = H.ed448_sign(hx, seed, msg, "ed448ph")
+        ph_pubs.append(pub), ph_msgs.append(msg), ph_sigs.append(sig)
+    print(f"batch-verify fixtures: {UNIQUE} unique ECFSDSA (P-256, P-384, "
+          "BrainpoolP512r1), BIP0340 and Ed448ph signatures from the host "
+          f"signers, tiled to {BATCH}, in {time.perf_counter() - t0:.1f} s")
+    for name, pubs_, ms, ss, flip in (
+            ("ed25519", e_pubs, e_msgs, e_sigs, flip_s_ed),
+            ("ed448", x_pubs, x_msgs, x_sigs, flip_s_448),
+            ("ed448ph", ph_pubs * reps, ph_msgs * reps, ph_sigs * reps,
+             flip_s_448)):
+        paths[name] = (lambda ms_, ss_, v=name, pk=pubs_:
+                       bv.eddsa_verify_batch(v, pk, ms_, ss_))
+        inputs[name] = (ms, ss, flip)
 
     reset()
     for name, fn in paths.items():
         ms, ss, flip = inputs[name]
         _check(fn(ms, ss) is True, f"{name}: the valid batch rejects")
         _check(fn(ms, swap(ss, 777, flip)) is False,
-               f"{name}: a batch with one flipped signature bit accepts")
+               f"{name}: a batch with one flipped bit of s accepts")
         _check(fn(evil(ms), ss) is False,
                f"{name}: a batch with one changed message accepts")
     bv_counts = snapshot()
-    print("batch-verify path launches:", json.dumps(bv_counts))
-    for name in ["mont_mul", "mont_sqr", "point_add", "point_dbl", "ed_add",
-                 "ed_dbl", "straus_mul", "straus_mul_ed"]:
+    print("batch-verify path launches:",
+          json.dumps({k_: v for k_, v in bv_counts.items() if v}))
+    straus_names = [megamul._KERNELS[key][0] for key in (
+        (8, "w", 2), (8, "ed", 2), (12, "w", 2), (16, "w", 2),
+        (14, "ed", 2))]
+    for name in straus_names + [
+            "mont_mul", "mont_sqr", "point_add", "point_dbl", "ed_add",
+            "ed_dbl", "point_add_k12", "point_dbl_k12", "point_add_k16",
+            "point_dbl_k16", "ed_add_k14", "ed_dbl_k14", "mont_mul_k14",
+            "mont_sqr_k14", "mont_mul_k12", "mont_mul_k16"]:
         _check(bv_counts[name] >= 1,
                f"kernel {name} was not launched on the batch-verify path")
-    print("batch-verify path: the valid 8192-signature batches accept; one "
-          "flipped signature bit or one changed message rejects each")
+    print(f"batch-verify path: the valid {BATCH}-signature batches accept "
+          f"({', '.join(paths)}); one flipped bit of s or one changed "
+          "message rejects each")
 
-    # the joint-table Straus (kernels 5 and 8c), its own run on both curves
+    # the joint-table Straus (kernels 5 and 8c), its own run on the K = 8
+    # curves
     reset()
-    joint = {name: scalar_mul.straus_double_mul_public(cv, ut, P1, vt, P2)
-             for name, (cv, P1, P2, ut, vt, _) in straus_in.items()}
+    joint = {label: scalar_mul.straus_double_mul_public(cv, ut, P1, vt, P2)
+             for label, (cv, P1, P2, _, ut, vt, _, _) in straus_in.items()
+             if cv.fp_ctx.k == 8}
     torch.cuda.synchronize()
     joint_counts = snapshot()
     print("joint-table Straus launches:", json.dumps(joint_counts))
@@ -1371,63 +1491,99 @@ def main() -> int:
                f"kernel {name} was not launched on the joint-table Straus")
     # ... gives the separate-table Straus's points (kernels 6 and 6-ed) on
     # every lane
-    for name, (cv, P1, P2, ut, vt, cls) in straus_in.items():
+    for label, pts in joint.items():
+        cv, P1, P2, cls, ut, vt, _, _ = straus_in[label]
         w4 = scalar_mul.straus_double_mul_public_w4(cv, ut, P1, vt, P2)
         aff = (shortw.to_affine_plain if cls is PrjPoint
                else edwards.to_affine_plain)
-        for a_, b_ in zip(aff(cv, w4), aff(cv, joint[name])):
-            _check(torch.equal(a_, b_), f"{name}: straus_double_mul_public "
+        for a_, b_ in zip(aff(cv, w4), aff(cv, pts)):
+            _check(torch.equal(a_, b_), f"{label}: straus_double_mul_public "
                    "and straus_double_mul_public_w4 differ in affine form")
-    print(f"joint-table Straus equals the separate-table one on all {POINT_N} "
-          "lanes of both curves")
+    print(f"joint-table Straus equals the separate-table one on all {N} "
+          "lanes of both K = 8 curves")
 
-    # the KAT rows as batches: ECFSDSA and BIP0340 (sig_kats.jsonl, public
-    # key X || Y || Z), the EDDSA25519 rows grouped by variant and context
+    # the KAT rows as batches, each (label, call, messages, signatures,
+    # corruption): ECFSDSA SECP256R1 and BIP0340 SECP256K1 (sig_kats.jsonl)
+    # and ECFSDSA SECP384R1 and BRAINPOOLP512R1 (kats_full.jsonl), public
+    # key X || Y || Z, two lanes, the second message changed; the
+    # EDDSA25519 and EDDSA448 rows grouped by variant and context, the
+    # first signature's s flipped
+    def new_msg(ms, ss):
+        return swap(ms, 1, lambda m_: m_ + b"x"), ss
+
+    def flip_first(flip):
+        return lambda ms, ss: (ms, swap(ss, 0, flip))
+
+    def kat_keys(cv, alg, pub):
+        pc, nbp = cv.fp_ctx.p_int, len(pub) // 3
+        X, Y, Z = [int.from_bytes(pub[nbp * i:nbp * (i + 1)], "big")
+                   for i in range(3)]
+        zi = pow(Z, -1, pc)
+        return K_.pubkey_batch_from_affine_ints(cv, alg, [X * zi % pc] * 2,
+                                                [Y * zi % pc] * 2)
+
+    kat_batches = []
     with open(os.path.join(VEC, "sig_kats.jsonl")) as f:
         skats = {(r["alg"], r["curve"]): r for r in map(json.loads, f)
                  if r["hash"] == "SHA256"}
     for alg, cv, fn in (("ECFSDSA", c, bv.ecfsdsa_verify_batch),
                         ("BIP0340", k1, bv.bip0340_verify_batch)):
         r = skats[(alg, "SECP256R1" if cv is c else "SECP256K1")]
-        pub = bytes.fromhex(r["pub"])
-        pc = cv.fp_ctx.p_int
-        X, Y, Z = [int.from_bytes(pub[32 * i:32 * (i + 1)], "big")
-                   for i in range(3)]
-        zi = pow(Z, -1, pc)
-        kb1 = K_.pubkey_batch_from_affine_ints(cv, alg, [X * zi % pc] * 2,
-                                               [Y * zi % pc] * 2)
         msg, sig = r["msg"].encode(), bytes.fromhex(r["sig"])
-        _check(fn(kb1, [msg, msg], [sig, sig]) is True,
-               f"{alg} KAT row rejected as a batch")
-        _check(fn(kb1, [msg, msg + b"x"], [sig, sig]) is False,
-               f"{alg} KAT row with a changed message accepted")
-    groups = {}
-    for r in kats:
-        ctx_ = bytes.fromhex(r["adata_hex"]) if r["adata_hex"] else b""
-        pub, sig = H.ed25519_sign(hc, bytes.fromhex(r["priv"]),
-                                  bytes.fromhex(r["msg_hex"]),
-                                  variants[r["alg"]], ctx_)
-        _check(sig == bytes.fromhex(r["sig"]), f"{r['name']}: signer differs")
-        g = groups.setdefault((variants[r["alg"]], ctx_), ([], [], []))
-        for lst, v in zip(g, (pub, bytes.fromhex(r["msg_hex"]), sig)):
-            lst.append(v)
-    for (var, ctx_), (gp, gm, gs) in groups.items():
-        _check(bv.eddsa_verify_batch(var, gp, gm, gs, context=ctx_) is True,
-               f"EDDSA25519 KAT rows ({var}) rejected as a batch")
-        _check(bv.eddsa_verify_batch(var, gp, gm, swap(gs, 0, flip_s_ed),
-                                     context=ctx_) is False,
-               f"EDDSA25519 KAT rows ({var}) accepted with a flipped bit")
-    print(f"batch-verify KATs: the ECFSDSA SECP256R1 and BIP0340 SECP256K1 "
-          f"rows and the {len(kats)} EDDSA25519 rows ({len(groups)} batches, "
-          "one per variant and context) accept; corrupted, they reject")
+        kat_batches.append((f"{alg} {r['curve']} KAT row", batch_call(
+            fn, kat_keys(cv, alg, bytes.fromhex(r["pub"])), "SHA256"),
+            [msg] * 2, [sig] * 2, new_msg))
+    with open(os.path.join(VEC, "kats_full.jsonl")) as f:
+        fkats = [r for r in map(json.loads, f) if r.get("alg") == "ECFSDSA"
+                 and r["curve"] in ("SECP384R1", "BRAINPOOLP512R1")]
+    _check(len(fkats) == 2, f"expected 2 ECFSDSA KAT rows, got {len(fkats)}")
+    for r in fkats:
+        cv, cw = w_curves[r["curve"]][:2]
+        msg, sig = bytes.fromhex(r["msg_hex"]), bytes.fromhex(r["sig"])
+        _check(H.ecfsdsa_sign_ref(cw, int(r["priv"], 16),
+                                  int(r["nonce"], 16), msg, r["hash"]) == sig,
+               f"{r['name']}: the host signer differs")
+        kat_batches.append((r["name"], batch_call(
+            bv.ecfsdsa_verify_batch,
+            kat_keys(cv, "ECFSDSA", bytes.fromhex(r["pub"])), r["hash"]),
+            [msg] * 2, [sig] * 2, new_msg))
+    n_ed = {}
+    for rows_, sign, vmap, flip in (
+            (kats, lambda *a: H.ed25519_sign(hc, *a), variants, flip_s_ed),
+            (xkats, lambda *a: H.ed448_sign(hx, *a), x_variants,
+             flip_s_448)):
+        groups = {}
+        for r in rows_:
+            ctx_ = bytes.fromhex(r["adata_hex"]) if r["adata_hex"] else b""
+            var, msg = vmap[r["alg"]], bytes.fromhex(r["msg_hex"])
+            pub, sig = sign(bytes.fromhex(r["priv"]), msg, var, ctx_)
+            _check(sig == bytes.fromhex(r["sig"]),
+                   f"{r['name']}: the host signer differs")
+            g = groups.setdefault((var, ctx_), ([], [], []))
+            for lst, v in zip(g, (pub, msg, sig)):
+                lst.append(v)
+        for (var, ctx_), (gp, gm, gs) in groups.items():
+            n_ed[var] = n_ed.get(var, 0) + 1
+            kat_batches.append((
+                f"KAT rows {var} (context {ctx_!r})",
+                lambda ms, ss, v=var, pk=gp, cx=ctx_: bv.eddsa_verify_batch(
+                    v, pk, ms, ss, context=cx), gm, gs, flip_first(flip)))
+    for label, fn, ms, ss, corrupt in kat_batches:
+        _check(fn(ms, ss) is True, f"{label}: rejected as a batch")
+        _check(fn(*corrupt(ms, ss)) is False,
+               f"{label}: accepted as a batch, corrupted")
+    print(f"batch-verify KATs: the ECFSDSA SECP256R1, SECP384R1 and "
+          f"BRAINPOOLP512R1 rows, the BIP0340 SECP256K1 row, the {len(kats)} "
+          f"EDDSA25519 and the {len(xkats)} EDDSA448 / EDDSA448PH rows "
+          f"({len(kat_batches)} batches; EdDSA batches per variant: "
+          f"{json.dumps(n_ed)}) accept; corrupted, they reject")
 
-    # measurements of the three batch paths
-    bv_report = {}
-    bv_marked = {}
+    # measurements of the batch paths
+    bv_report, bv_marked = {}, {}
     for name, fn in paths.items():
         ms, ss, _ = inputs[name]
         marks = ["keys"] if name == "bip0340_secp256k1" else []
-        marks += ["parse", "decode" if name == "ed25519" else "lift",
+        marks += ["parse", "decode" if name.startswith("ed") else "lift",
                   "table", "straus", "reduce", "comb", "accept", "return"]
         bv_report[name], bv_marked[name] = time_batch(
             lambda fn=fn, ms=ms, ss=ss: fn(ms, ss), f"{name} batch verify",
@@ -1440,11 +1596,36 @@ def main() -> int:
         megamul.straus_mul_plain(k1, *btabs, PrjPoint), BATCH,
         " on the BIP0340 batch's tables (secp256k1, a = 0)")
 
-    # kernels 6 and 6-ed at the batch path's shapes (N = 8192): kernel 6 on
-    # the ECFSDSA batch's tables and digits, 6-ed on the Ed25519 batch's;
-    # kernels 5 and 8c at the joint-table Straus's shapes
-    ftabs = bv_marked["ecfsdsa_p256"]["table"]
-    etabs = bv_marked["ed25519"]["table"]
+    # kernels 6 and 6-ed at the batch paths' shapes (N = 8192), on a
+    # batch's own tables and digits with straus_check's special lanes in
+    # its first lanes. The batch's u digits are those of 128-bit z_i, half
+    # of them 0, and the time depends on the digits: at K = 12 to 16 the
+    # kernel takes 14-29% longer on an H100 when every lane's scalars are
+    # full-size. Kernels 5 and 8c at the joint-table Straus's shapes.
+    def straus_row(label, path, per_win):
+        cv, _, _, cls, _, _, check_tabs, nfix = straus_in[label]
+        tabs = []
+        for b, t in zip(bv_marked[path]["table"], check_tabs):
+            _check(b.shape == t.shape, f"{label}: the {path} batch's tables "
+                   f"{tuple(b.shape)} differ in shape from {tuple(t.shape)}")
+            b = b.clone()
+            b[..., :nfix] = t[..., :nfix]
+            tabs.append(b)
+        k_, ncoord = cv.fp_ctx.k, len(cls._fields)
+        fe_, nwin = 4 * k_, tabs[1].shape[0]
+        return (lambda: megamul.straus_mul(cv, *tabs, cls),
+                lambda: megamul.straus_mul_plain(cv, *tabs, cls), 5, 1,
+                N * (2 * 16 * ncoord * fe_ + 2 * nwin * 4 + ncoord * fe_),
+                N * nwin * (per_win[0] * fsqr_slots(k_)
+                            + per_win[1] * fmul_slots(k_)))
+
+    bv_kern = dict(zip(straus_names, (
+        straus_row("P-256", "ecfsdsa_p256", STRAUS_PER_WINDOW),
+        straus_row("Ed25519", "ed25519", ED_STRAUS_PER_WINDOW),
+        straus_row("P-384", "ecfsdsa_p384", STRAUS_PER_WINDOW),
+        straus_row("BrainpoolP512r1", "ecfsdsa_bp512",
+                   GENERIC_STRAUS_PER_WINDOW),
+        straus_row("Ed448", "ed448", ED448_STRAUS_PER_WINDOW))))
     joint_kern = {
         "point_dbln_add": (
             lambda: point.point_dbln_add(c, PA, PB, JOINT_NDBL),
@@ -1459,39 +1640,32 @@ def main() -> int:
             N * (4 * JOINT_NDBL * FSQR_SLOTS
                  + (4 * JOINT_NDBL + 9) * FMUL_SLOTS)),
     }
-    bv_kern = {
-        "straus_mul": (
-            lambda: megamul.straus_mul(c, *ftabs, PrjPoint),
-            lambda: megamul.straus_mul_plain(c, *ftabs, PrjPoint), 10, 1,
-            N * (2 * 16 * 96 + 2 * 64 * 4 + 96),
-            N * 64 * (STRAUS_PER_WINDOW[0] * FSQR_SLOTS
-                      + STRAUS_PER_WINDOW[1] * FMUL_SLOTS)),
-        "straus_mul_ed": (
-            lambda: megamul.straus_mul(ec, *etabs, ExtPoint),
-            lambda: megamul.straus_mul_plain(ec, *etabs, ExtPoint), 10, 1,
-            N * (2 * 16 * 128 + 2 * 64 * 4 + 128),
-            N * 64 * (ED_STRAUS_PER_WINDOW[0] * FSQR_SLOTS
-                      + ED_STRAUS_PER_WINDOW[1] * FMUL_SLOTS)),
-    }
-    source.update({"point_dbln_add": "point.cu", "ed_dbln_add": "edpoint.cu",
-                   "straus_mul": "windowed.cu", "straus_mul_ed": "windowed.cu"})
+    source.update({"point_dbln_add": "point.cu", "ed_dbln_add": "edpoint.cu"})
     replaces.update({
         "point_dbln_add": "libecc_tpu/ops/pallas/point.py:507",
         "ed_dbln_add": "libecc_tpu/ops/pallas/edpoint.py:140",
-        "straus_mul": "libecc_tpu/ops/pallas/megamul.py:224",
-        "straus_mul_ed": "libecc_tpu/ops/pallas/megamul.py:224",
     })
-    per_batch_all = dict.fromkeys(bv_counts, 0)     # the three batches
+    for inst in megamul._KERNELS.values():
+        if inst[0] in bv_kern:
+            source[inst[0]] = f"{inst[3]}.cu"
+            replaces[inst[0]] = "libecc_tpu/ops/pallas/megamul.py:224"
+    per_batch_all = dict.fromkeys(bv_counts, 0)     # the seven batches
     for rep in bv_report.values():
         for k_, v in rep["launches_per_batch"].items():
             per_batch_all[k_] += v
+    n_before = len(lines)
     time_kernels(bv_kern, bv_counts, per_batch_all, "batch verification")
     time_kernels(joint_kern, joint_counts, joint_counts,
                  "joint-table Straus")
-    for row in lines:                     # the older kernels on these paths
-        if row["path"] not in ("batch verification", "joint-table Straus"):
-            row["batch_verify_launches"] = bv_counts[row["name"]]
-            row["joint_straus_launches"] = joint_counts[row["name"]]
+    for row in lines[n_before:]:
+        if row["name"] in ("straus_mul_k16_w4", "straus_mul_ed_k14_w4"):
+            # the large-K body backend these instances stand for
+            row["also_replaces"] = "libecc_tpu/ops/pallas/rows.py:129"
+    for row in lines[:n_before]:          # the older kernels on these paths
+        row["batch_verify_launches"] = bv_counts[row["name"]]
+        row["joint_straus_launches"] = joint_counts[row["name"]]
+
+    lap("the batch-verify paths")
 
     def rated(rep, key):
         rep = dict(rep)

@@ -16,8 +16,10 @@
 // with u's digit, then Q's table with v's digit). The accumulator stays in
 // registers across all windows; only the tables and the digits are read
 // from device memory and the result written once. The loop is a template
-// over K in windowed.cuh: built here at K = 8 for every a, and in
-// windowed_wide.cu for kernel 4 at K = 12 (a = -3) and K = 16 (generic a).
+// over K in windowed.cuh: built here at K = 8 for every a, in
+// windowed_wide.cu for kernel 4 at K = 12 (a = -3) and K = 16 (generic a),
+// in windowed_p521.cu for kernel 4 at K = 17 (a = -3, P-521) and in
+// straus_wide.cu for kernel 6 at K = 12 and K = 16.
 //
 // Twisted Edwards (kernels 7 and 6-ed, extended): the accumulator starts
 // at (0 : 1 : 1 : 0); per window, most significant first, w
@@ -28,7 +30,8 @@
 // kernels 7 and 6-ed) and, for kernel 7, a = 1 at K = 14 (Ed448: q has
 // 446 bits, so 112 windows; with kernels 1, 8a and 8b at K = 14 this is
 // the port's counterpart of the TPU's rows.py:RowOps backend, :129, which
-// megamul.py takes for Ed448's K = 32).
+// megamul.py takes for Ed448's K = 32); kernel 6-ed at K = 14 is built in
+// straus_ed448.cu.
 //
 // The order of the adds is the reference's: the projective values (not
 // only the points) are held bitwise against the plain versions and, on the
@@ -57,58 +60,7 @@
 // it), a cost left to later work.
 // Staging the tables in shared memory (1.5 or 2 KB a lane and pair) is
 // later work.
-#include "edpoint.cuh"
 #include "windowed.cuh"
-
-namespace ecc {
-
-template <int K, int AK, int NPAIRS>
-__global__ void __launch_bounds__(128)
-windowed_mul_ed_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
-                       int nwin, uint32_t* __restrict__ ox,
-                       uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
-                       uint32_t* __restrict__ ot, long long n) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  ExtPt<K> acc;
-  acc.x = fe_zero<K>();
-  acc.y = fe_const<K>(C.one);
-  acc.z = fe_const<K>(C.one);
-  acc.t = fe_zero<K>();
-  const long long coord_stride = (long long)K * n;
-  const long long entry_stride = 4 * coord_stride;
-#pragma unroll 1
-  for (int wi = 0; wi < nwin; ++wi) {
-#pragma unroll 1
-    for (int d = 0; d < kWindow; ++d)
-      acc = ed_dbl<K, AK>(acc.x, acc.y, acc.z, C);
-#pragma unroll 1
-    for (int pi = 0; pi < NPAIRS; ++pi) {
-      const int dig = pr.digits[pi][(long long)wi * n + lane] & (kEntries - 1);
-      const uint32_t* e = pr.table[pi] + dig * entry_stride;
-      const ExtPt<K> T = load_ext<K>(e, e + coord_stride,
-                                     e + 2 * coord_stride,
-                                     e + 3 * coord_stride, n, lane);
-      acc = ed_add<K, AK>(acc, T, C);
-    }
-  }
-  store_ext<K>(ox, oy, oz, ot, n, lane, acc);
-}
-
-template <int K, int AK, int NPAIRS>
-int launch_ed(const EdCurveCtx<K>* C, const int32_t* const* digits,
-              int nwin, const uint32_t* const* tables, uint32_t* const* out,
-              long long n, void* stream) {
-  if (C->a_kind != AK) return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    windowed_mul_ed_kernel<K, AK, NPAIRS><<<blocks_for(n), kThreads, 0,
-                                            (cudaStream_t)stream>>>(
-        *C, pairs_of<NPAIRS>(digits, tables), nwin, out[0], out[1], out[2],
-        out[3], n);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace ecc
 
 extern "C" {
 

@@ -1,10 +1,15 @@
-// The short-Weierstrass window loop of kernels 4 and 6 as a template over
-// K, the formula set AK and the number of (table, digits) pairs NPAIRS,
-// with its launchers. windowed.cu builds it at K = 8 (every a, one and two
-// pairs) beside the Edwards kernels; windowed_wide.cu at K = 12 (a = -3)
-// and K = 16 (generic a), one pair. The design notes are in windowed.cu.
+// The window loops of kernels 4 and 6 (short Weierstrass) and 7 and 6-ed
+// (twisted Edwards) as templates over K, the formula set AK and the number
+// of (table, digits) pairs NPAIRS, with their launchers. windowed.cu
+// builds them at K = 8 (every a; Edwards a = -1; one and two pairs) and
+// the Edwards loop at K = 14 (a = 1, one pair); windowed_wide.cu kernel 4
+// at K = 12 (a = -3) and K = 16 (generic a); windowed_p521.cu kernel 4 at
+// K = 17 (a = -3); straus_wide.cu kernel 6 at K = 12 and 16; straus_ed448.cu
+// kernel 6-ed at K = 14 (a = 1). Each file is one nvcc process of the
+// parallel build. The design notes are in windowed.cu.
 #pragma once
 
+#include "edpoint.cuh"
 #include "point.cuh"
 
 namespace ecc {
@@ -80,6 +85,54 @@ int launch_w(const CurveCtx<K>* C, const int32_t* const* digits, int nwin,
         <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
             *C, pr, nwin, out[0], out[1], out[2], n);
   });
+}
+
+// The Edwards loop of kernels 7 and 6-ed at K with the formula set AK and
+// NPAIRS pairs (see windowed.cu); out: x, y, z, t.
+template <int K, int AK, int NPAIRS>
+__global__ void __launch_bounds__(128)
+windowed_mul_ed_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
+                       int nwin, uint32_t* __restrict__ ox,
+                       uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
+                       uint32_t* __restrict__ ot, long long n) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  ExtPt<K> acc;
+  acc.x = fe_zero<K>();
+  acc.y = fe_const<K>(C.one);
+  acc.z = fe_const<K>(C.one);
+  acc.t = fe_zero<K>();
+  const long long coord_stride = (long long)K * n;
+  const long long entry_stride = 4 * coord_stride;
+#pragma unroll 1
+  for (int wi = 0; wi < nwin; ++wi) {
+#pragma unroll 1
+    for (int d = 0; d < kWindow; ++d)
+      acc = ed_dbl<K, AK>(acc.x, acc.y, acc.z, C);
+#pragma unroll 1
+    for (int pi = 0; pi < NPAIRS; ++pi) {
+      const int dig = pr.digits[pi][(long long)wi * n + lane] & (kEntries - 1);
+      const uint32_t* e = pr.table[pi] + dig * entry_stride;
+      const ExtPt<K> T = load_ext<K>(e, e + coord_stride,
+                                     e + 2 * coord_stride,
+                                     e + 3 * coord_stride, n, lane);
+      acc = ed_add<K, AK>(acc, T, C);
+    }
+  }
+  store_ext<K>(ox, oy, oz, ot, n, lane, acc);
+}
+
+template <int K, int AK, int NPAIRS>
+int launch_ed(const EdCurveCtx<K>* C, const int32_t* const* digits,
+              int nwin, const uint32_t* const* tables, uint32_t* const* out,
+              long long n, void* stream) {
+  if (C->a_kind != AK) return (int)cudaErrorInvalidValue;
+  if (n > 0)
+    windowed_mul_ed_kernel<K, AK, NPAIRS><<<blocks_for(n), kThreads, 0,
+                                            (cudaStream_t)stream>>>(
+        *C, pairs_of<NPAIRS>(digits, tables), nwin, out[0], out[1], out[2],
+        out[3], n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace ecc

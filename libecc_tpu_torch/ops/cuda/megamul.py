@@ -1,6 +1,7 @@
 """Kernels 4, 6, 7 and 6-ed: the whole fixed-window scalar multiply and the
-whole Straus dual multiply (``csrc/windowed.cu``; the K = 12 and K = 16
-instances of kernel 4 in ``csrc/windowed_wide.cu``).
+whole Straus dual multiply (``csrc/windowed.cu``; the wide instances in
+``csrc/windowed_wide.cu``, ``windowed_p521.cu``, ``straus_wide.cu`` and
+``straus_ed448.cu``).
 
 Counterpart of ``libecc_tpu/ops/pallas/megamul.py``: ``windowed_mul``
 (npairs 1) and ``straus_mul`` (npairs 2), each in two models. The model
@@ -19,10 +20,11 @@ and 6, model ``w``), four is twisted Edwards (kernels 7 and 6-ed, model
 The kernels read the entry by index, so they serve PUBLIC scalars only
 (see the note in the CUDA source). The TPU kernel's VMEM sizing and its
 w -> w-1 fallback have no counterpart: the kernels are built at w = 4 for
-K = 8 (all four; every a, Edwards a = -1), for kernel 7 at K = 14
-(Edwards a = 1, Ed448) and for kernel 4 at K = 12 (a = -3, P-384) and
-K = 16 (generic a: the 512-bit curves). The K = 14 and K = 16 instances
-are the counterpart of the TPU's large-K ``rows.py:RowOps`` backend. The
+K = 8 (all four; every a, Edwards a = -1), for kernels 7 and 6-ed at
+K = 14 (Edwards a = 1, Ed448), for kernels 4 and 6 at K = 12 (a = -3,
+P-384) and K = 16 (generic a: the 512-bit curves), and for kernel 4 at
+K = 17 (a = -3, P-521). The K = 14, 16 and 17 instances are the
+counterpart of the TPU's large-K ``rows.py:RowOps`` backend. The
 wrappers raise on any other shape or a for a tensor on the card.
 """
 
@@ -45,9 +47,10 @@ WINDOW = 4
 # point, the a_kind the formulas are built for (None: every a, one formula
 # set per a chosen at launch) and the library (csrc/<stem>.cu). Model "w"
 # is short Weierstrass (three coordinates, point.A_* kinds), "ed" twisted
-# Edwards (four, edpoint.A_* kinds). The wide model-"w" instances (K = 12
-# for P-384, K = 16 for the 512-bit curves) are named by their C entry
-# points. The support check, the ctypes typing and the launch counts
+# Edwards (four, edpoint.A_* kinds). The wide instances other than kernel
+# 7 at K = 14 (K = 12 for P-384, K = 16 for the 512-bit curves, K = 17 for
+# P-521, the Straus kernels at K = 12, 14 and 16) are named by their C
+# entry points. The support check, the ctypes typing and the launch counts
 # derive from this table.
 A_M1, A_1 = edpoint.A_M1, edpoint.A_1
 _KERNELS = {
@@ -62,7 +65,15 @@ _KERNELS = {
     (12, "w", 1): ("windowed_mul_k12_w4", "windowed_mul_k12_w4", A_M3,
                    "windowed_wide"),
     (16, "w", 1): ("windowed_mul_k16_w4", "windowed_mul_k16_w4", A_GENERIC,
-                   "windowed_wide")}
+                   "windowed_wide"),
+    (17, "w", 1): ("windowed_mul_k17_w4", "windowed_mul_k17_w4", A_M3,
+                   "windowed_p521"),
+    (12, "w", 2): ("straus_mul_k12_w4", "straus_mul_k12_w4", A_M3,
+                   "straus_wide"),
+    (16, "w", 2): ("straus_mul_k16_w4", "straus_mul_k16_w4", A_GENERIC,
+                   "straus_wide"),
+    (14, "ed", 2): ("straus_mul_ed_k14_w4", "straus_mul_ed_k14_w4", A_1,
+                    "straus_ed448")}
 
 launches = {inst[0]: 0 for inst in _KERNELS.values()}
 

@@ -1,6 +1,7 @@
 """Kernels 2, 3 and 5: complete point addition, doubling and the fused
 2^n*P + T step (``csrc/point.cu``; the K = 12 and K = 16 instances of 2
-and 3 in ``csrc/point_wide.cu``).
+and 3 in ``csrc/point_wide.cu``, the K = 17 ones in
+``csrc/point_p521.cu``).
 
 Counterparts of ``libecc_tpu/ops/pallas/point.py:point_add`` /
 ``point_dbl`` / ``point_dbln_add``. The plain versions below evaluate the
@@ -30,14 +31,16 @@ A_NAMES = {A_GENERIC: "generic a", A_M3: "a = -3", A_ZERO: "a = 0"}
 BASES = ("point_add", "point_dbl", "point_dbln_add")
 # The built instances of kernels 2, 3 and 5: (K, a_kind) -> the library
 # (csrc/<stem>.cu) and the kernels built there. K = 8 takes every a (one
-# formula set per a, chosen at launch); K = 12 (P-384) and K = 16 (the
-# 512-bit curves) are built for one a each, and kernel 5 at K = 8 only.
+# formula set per a, chosen at launch); K = 12 (P-384), K = 16 (the
+# 512-bit curves) and K = 17 (P-521) are built for one a each, and kernel
+# 5 at K = 8 only.
 # The support check, the ctypes typing and the launch counts derive from
 # this table.
 _WIDE = ("point_add", "point_dbl")
 BUILT = {(8, A_GENERIC): ("point", BASES), (8, A_M3): ("point", BASES),
          (8, A_ZERO): ("point", BASES), (12, A_M3): ("point_wide", _WIDE),
-         (16, A_GENERIC): ("point_wide", _WIDE)}
+         (16, A_GENERIC): ("point_wide", _WIDE),
+         (17, A_M3): ("point_p521", _WIDE)}
 
 launches = {kernel_name(base, k): 0
             for (k, _), (_, bases) in BUILT.items() for base in bases}

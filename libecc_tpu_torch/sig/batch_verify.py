@@ -16,9 +16,12 @@ the z_i (2^-128), so ``rng`` must be unpredictable: it defaults to
 ``os.urandom`` and is injected only by tests.
 
 The per-signature parsing, range checks and challenge hashes run on the
-host (hashlib; the SHA-2 names only), as in the reference. Every entry
-point runs on the card unless ``device="cpu"`` is passed, and returns a
-Python bool.
+host (hashlib: the SHA-2 and SHA-3 names, and SHA-512 or SHAKE256 for
+EdDSA), as in the reference. The card runs every curve whose (K, a) has
+kernel 6 or 6-ed (``ops/cuda/megamul.py``): ECFSDSA on P-256, P-384 and
+the 512-bit curves, BIP0340 on secp256k1, Ed25519 and Ed448; another
+curve raises there. Every entry point runs on the card unless
+``device="cpu"`` is passed, and returns a Python bool.
 """
 
 from __future__ import annotations
@@ -39,22 +42,27 @@ from ..fp import field as fp
 from ..nn import core as nn
 from . import eddsa as ed_mod
 from .bip0340 import tagged_hash
+from .common import hash_key
 from .keys import pubkey_batch_from_affine_ints
 
 Z_BITS = 128
 
-_SHA2 = {"SHA224": hashlib.sha224, "SHA256": hashlib.sha256,
-         "SHA384": hashlib.sha384, "SHA512": hashlib.sha512}
+_HOST_HASHES = {"SHA224": hashlib.sha224, "SHA256": hashlib.sha256,
+                "SHA384": hashlib.sha384, "SHA512": hashlib.sha512,
+                "SHA3224": hashlib.sha3_224, "SHA3256": hashlib.sha3_256,
+                "SHA3384": hashlib.sha3_384, "SHA3512": hashlib.sha3_512}
 
 
 def _host_hash(hash_name: str):
-    """The hashlib constructor of a SHA-2 name; other hashes raise."""
-    alg = _SHA2.get(hash_name.replace("-", "").upper())
+    """The hashlib constructor of a SHA-2 or SHA-3 name, without regard to
+    case, dashes or underscores ("SHA-256", "SHA_256", "sha3_256"); other
+    hashes raise."""
+    alg = _HOST_HASHES.get(hash_key(hash_name))
     if alg is None:
         raise NotImplementedError(
             f"batch verification: hash {hash_name!r} is not ported yet "
-            "(ROADMAP queue 1 item 17); SHA224, SHA256, SHA384 and SHA512 "
-            "are")
+            "(ROADMAP queue 1 item 6, the hash layer); the SHA-2 and SHA-3 "
+            "hashes are")
     return alg
 
 
@@ -197,17 +205,13 @@ def bip0340_verify_batch(keys, msgs, sigs, hash_name="SHA256", rng=None,
 
 def eddsa_verify_batch(variant, pub_keys, msgs, sigs, context: bytes = b"",
                        rng=None, device=None) -> bool:
-    """EdDSA batch verify (RFC 8032 ed25519, ed25519ctx, ed25519ph; Ed448
-    raises). A and R are decoded as one batch of 2N lanes. Returns one
+    """EdDSA batch verify (RFC 8032 ed25519, ed25519ctx, ed25519ph, ed448,
+    ed448ph). A and R are decoded as one batch of 2N lanes. Returns one
     bool."""
     dev = resolve_device(device)
     v = ed_mod.get_variant(variant)
-    if v.curve_name != "ED25519":
-        raise NotImplementedError(
-            f"{v.name}: Ed448 batch verification needs kernels 6-ed and 8c "
-            "at K = 14, which are not ported yet")
     c_curve = ed.get_edwards_curve(v.curve_name)
-    q = c_curve.q
+    q, p = c_curve.q, c_curve.fp_ctx.p_int
     pre = ed_mod._dom(v, context)
     msgs_ph = [ed_mod._prehash(v, m) for m in msgs]
     n = len(sigs)
@@ -228,8 +232,12 @@ def eddsa_verify_batch(variant, pub_keys, msgs, sigs, context: bytes = b"",
         if (a_int & ~(ymask | (1 << v.sign_bit))) or \
            (r_int & ~(ymask | (1 << v.sign_bit))):
             return False
-        k = ed_mod._le_mod_q(hashlib.sha512(
-            pre + encR + pub_keys[i] + msgs_ph[i]).digest(), q)
+        # y >= p does not decode (the reference's decode_core rejects it);
+        # Ed448's 455 bits of y would not fit the K = 14 limbs either
+        if (a_int & ymask) >= p or (r_int & ymask) >= p:
+            return False
+        k = ed_mod._le_mod_q(
+            ed_mod._xof(v, pre, encR, pub_keys[i], msgs_ph[i]), q)
         ay.append(a_int & ymask)
         asign.append((a_int >> v.sign_bit) & 1)
         ry.append(r_int & ymask)

@@ -146,6 +146,7 @@ def verify_batch_async(keys, msgs: list[bytes], sigs: list[bytes],
     if (common.hash_key(hash_name) not in FUSED_HASHES
             or not _fused_applicable(msgs, sigs, nb)):
         e = common.e_from_msgs(msgs, q_ctx, keys.device, hash_name)
+        stages.mark("digest", e)
         return _verify_dispatch(keys, e, sigs)
     n, mlen = len(msgs), len(msgs[0])
     msg_u8 = nn.upload(np.frombuffer(b"".join(msgs), np.uint8).reshape(

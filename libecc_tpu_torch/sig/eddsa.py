@@ -84,6 +84,16 @@ def _prehash(v: Variant, m: bytes) -> bytes:
     return hashlib.sha512(m).digest()
 
 
+def _xof(v: Variant, *chunks: bytes) -> bytes:
+    """H(chunks...) on the host: SHA-512 (64 bytes) for the Ed25519
+    variants, SHAKE256 at 114 bytes for Ed448 and Ed448ph (the
+    reference's ``_xof``)."""
+    data = b"".join(chunks)
+    if v.hash_name == "SHAKE256":
+        return hashlib.shake_256(data).digest(2 * v.enc_len)
+    return hashlib.sha512(data).digest()
+
+
 def _le_mod_q(b: bytes, q: int) -> int:
     return int.from_bytes(b, "little") % q
 

@@ -9,8 +9,10 @@ code a user calls rather than a copy of it.
 Marks, in the order one batch passes them:
 
 * ``sig.eddsa.verify_batch``: "parse", "challenge", then the core's;
-* ``sig.ecdsa.verify_batch_async`` (fused bytes-in): "hash", then the
-  core's;
+* ``sig.ecdsa.verify_batch_async``: "hash" on the fused bytes-in path
+  (the padding, the hash and the limb unpacking on the device) or
+  "digest" on the unfused one (the messages packed on the host, then the
+  tensor hash: SHA-384, SHA-512, SHA-3), then the core's;
 * ``sig.ecdsa.verify_core``: "scalars" (u, v), "key on curve", then the
   double multiply's, then "accept";
 * ``sig.eddsa.verify_core``: "decode" (the 2N-lane point), then the double
@@ -20,8 +22,8 @@ Marks, in the order one batch passes them:
 * ``sig.batch_verify``'s three entry points: "keys" (BIP0340 only: the
   keys' affine coordinates), "parse" (the host loop: lengths, ranges,
   challenges, z_i, c), "lift" (ECFSDSA: R uploaded; BIP0340: R lifted
-  from x, the even-y keys) or "decode" (Ed25519: A and R as one 2N-lane
-  batch), then "table" (both tables and digit arrays, in
+  from x, the even-y keys) or "decode" (Ed25519, Ed448: A and R as one
+  2N-lane batch), then "table" (both tables and digit arrays, in
   ``straus_double_mul_public_w4``), "straus", "reduce" (the lane-tree
   sum), "comb" (c*G) and "accept".
 """

@@ -445,10 +445,14 @@ def test_y_from_x_matches_jax():
 
 def test_hash_and_scheme_refusals():
     kb, msgs, sigs = _fixture("ECFSDSA")
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         bv.ecfsdsa_verify_batch(kb, msgs, sigs, "SM3", device="cpu")
-    with pytest.raises(NotImplementedError):
-        bv.eddsa_verify_batch("ed448", [b""], [b""], [b""], device="cpu")
+    # a hash outside SHA-2 and SHA-3 is still refused (Ed448 no longer is:
+    # its malformed batch just rejects)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        bv.bip0340_verify_batch(kb, msgs, sigs, "STREEBOG512", device="cpu")
+    assert bv.eddsa_verify_batch("ed448", [b""], [b""], [b""],
+                                 device="cpu") is False
     with pytest.raises(NotImplementedError):
         bv.unsupported_verify_batch()
     if not torch.cuda.is_available():

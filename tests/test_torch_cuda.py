@@ -75,12 +75,13 @@ def _point_pairs(c, rng, n, dev):
     return _prj(c, rng, a_pts, dev), _prj(c, rng, b_pts, dev)
 
 
-# Kernels 1-4 at K = 8 (every a), K = 12 (P-384, a = -3) and K = 16 (the
-# 512-bit curves, generic a): K and the scalar bits come from the curve.
+# Kernels 1-4 at K = 8 (every a), K = 12 (P-384, a = -3), K = 16 (the
+# 512-bit curves, generic a) and K = 17 (P-521, a = -3): K and the scalar
+# bits come from the curve.
 
 @pytest.mark.parametrize("which", ["p", "q"])
 @pytest.mark.parametrize("name", ["P-256", "P-384", "BRAINPOOLP512R1",
-                                  "GOST512"])
+                                  "GOST512", "P-521"])
 def test_mont_kernels_match_plain(dev, name, which):
     c = params.get_curve(name)
     ctx = c.fp_ctx if which == "p" else c.q_ctx
@@ -101,7 +102,8 @@ def test_mont_kernels_match_plain(dev, name, which):
 
 
 @pytest.mark.parametrize("name", ["P-256", "SECP256K1", "BRAINPOOLP256R1",
-                                  "P-384", "BRAINPOOLP512R1", "GOST512"])
+                                  "P-384", "BRAINPOOLP512R1", "GOST512",
+                                  "P-521"])
 def test_point_kernels_match_plain(dev, name):
     c = params.get_curve(name)
     k = c.fp_ctx.k
@@ -121,9 +123,9 @@ def test_point_kernels_match_plain(dev, name):
 
 
 @pytest.mark.parametrize("name", ["P-256", "SECP256K1", "P-384",
-                                  "BRAINPOOLP512R1", "GOST512"])
+                                  "BRAINPOOLP512R1", "GOST512", "P-521"])
 def test_windowed_kernel_matches_plain(dev, name):
-    """Kernel 4 (64, 96 or 128 windows): the identity point (lanes 1 and
+    """Kernel 4 (64, 96, 128 or 131 windows): the identity point (lanes 1 and
     2), scalars whose last add is T + O, -T + T and T + T
     (hostref.window_edge_scalars), short ones and random ones; the first
     lanes also against the host oracle."""
@@ -155,7 +157,7 @@ def test_windowed_kernel_matches_plain(dev, name):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    c = params.get_curve("P-521")                      # K = 17
+    c = params.get_curve("P-224")                      # K = 7
     a = c.fp_ctx.from_ints([1, 2], dev)
     with pytest.raises(ValueError):
         mont.mont_mul(a, a, c.fp_ctx)
@@ -193,6 +195,20 @@ def _ed_extended(c, rng, pts, dev):
                    for (x, y), m in zip(pts, lam)])
     return ExtPoint(*[c.fp_ctx.from_ints([v % p for v in col], dev)
                       for col in coords])
+
+
+def _ed_pairs(c, rng, n, dev):
+    """Edge lanes P + O, O + Q, O + O, P = Q, P = -Q, then random ones."""
+    p = c.fp_ctx.p_int
+    hc = H.EdCurve(p, c.a, c.d, c.gx, c.gy, c.q, c.h)
+    base = [H.ed_base_mul(hc, k) for k in _ints(rng, 16, c.q)]
+    a_pts = [base[i % 16] for i in range(n)]
+    b_pts = [base[(7 * i + 3) % 16] for i in range(n)]
+    b_pts[0] = a_pts[1] = a_pts[2] = b_pts[2] = (0, 1)
+    b_pts[3] = a_pts[3]
+    b_pts[4] = ((-a_pts[4][0]) % p, a_pts[4][1])
+    return (_ed_extended(c, rng, a_pts, dev),
+            _ed_extended(c, rng, b_pts, dev))
 
 
 def test_ed_kernels_match_plain(dev):
@@ -285,57 +301,74 @@ def test_dbln_add_kernel_matches_plain(dev, name):
         point.point_dbln_add(c, A, B, -1)
 
 
-@pytest.mark.parametrize("name", ["P-256", "SECP256K1", "ED25519"])
+@pytest.mark.parametrize("name", ["P-256", "SECP256K1", "ED25519", "P-384",
+                                  "BRAINPOOLP512R1", "GOST512", "ED448"])
 def test_straus_kernels_match_plain(dev, name):
-    """Kernels 6 (as built for a = -3 and for a = 0) and 6-ed against their
-    plain versions (zero and short scalars included), through
-    straus_double_mul_public_w4, and the same points from the joint-table
-    Straus (kernels 5 and 8c)."""
+    """Kernel 6 at K = 8 (as built for a = -3 and for a = 0), K = 12 (a =
+    -3) and K = 16 (generic a, on both 512-bit curves) and kernel 6-ed at
+    K = 8 (a = -1) and K = 14 (a = 1) against their plain versions through
+    straus_double_mul_public_w4: the identity among the points, zero and
+    short scalars, the window edge scalars (the last add T + O, -T + T,
+    T + T) for u and, shifted by two lanes, for v; those lanes also against
+    the host oracle's u*P + v*Q. At K = 8, the same points from the
+    joint-table Straus (kernels 5 and 8c)."""
     rng = np.random.RandomState(77)
     n = 300
-    if name == "ED25519":
+    if name.startswith("ED"):
         c, cls = edwards.get_edwards_curve(name), ExtPoint
-        P = _ed_extended(c, rng, _ed_affine(c, rng, n), dev)
-        Q = _ed_extended(c, rng, _ed_affine(c, rng, n), dev)
+        P, Q = _ed_pairs(c, rng, n, dev)
+        hc = H.EdCurve(c.fp_ctx.p_int, c.a, c.d, c.gx, c.gy, c.q, c.h)
     else:
         c, cls = params.get_curve(name), PrjPoint
-        P, Q = _points(c, rng, n, dev), _points(c, rng, n, dev)
-    us = [0, 1, 0, 1 << 100] + _ints(rng, n - 4, c.q)
-    vs = [0, 0, 5, 3] + _ints(rng, n - 4, c.q)
-    ut = nn.upload(nn.batch_to_limbs(us, 8), dev)
-    vt = nn.upload(nn.batch_to_limbs(vs, 8), dev)
+        P, Q = _point_pairs(c, rng, n, dev)
+        wc = _host(c)
+    edges = H.window_edge_scalars(c.q)
+    us = [0, 1, 0, 1 << 100] + edges + [0, 1 << 100]
+    vs = [0, 0, 5, 3, 0, 5] + edges
+    nfix = len(vs)
+    us += _ints(rng, n - len(us), c.q)
+    vs += _ints(rng, n - len(vs), c.q)
+    kq = c.q_ctx.k
+    ut = nn.upload(nn.batch_to_limbs(us, kq), dev)
+    vt = nn.upload(nn.batch_to_limbs(vs, kq), dev)
     nbits = c.scalar_bits()
     ptab = scalar_mul._build_mul_table(c, P)
     qtab = scalar_mul._build_mul_table(c, Q)
     du = scalar_mul._window_digits(ut, nbits)
     dv = scalar_mul._window_digits(vt, nbits)
-    want = megamul.straus_mul_plain(c, ptab, du, qtab, dv, cls)
+    name_k = megamul._KERNELS[(c.fp_ctx.k, "ed" if cls is ExtPoint else "w",
+                               2)][0]
+    before = dict(megamul.launches)
     got = scalar_mul.straus_double_mul_public_w4(c, ut, P, vt, Q)
+    assert megamul.launches[name_k] == before[name_k] + 1
+    assert sum(megamul.launches.values()) == sum(before.values()) + 1
+    want = megamul.straus_mul_plain(c, ptab, du, qtab, dv, cls)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    joint = scalar_mul.straus_double_mul_public(c, ut, P, vt, Q)
-    ctx = c.fp_ctx
-    for a, b in ((0, 2), (1, 2)):               # x/z and y/z agree
-        assert torch.equal(nn.mont_mul(got[a], joint[b], ctx),
-                           nn.mont_mul(joint[a], got[b], ctx))
+    p = c.fp_ctx.p_int
+
+    def affine(T, i):
+        x, y, z = [c.fp_ctx.to_ints(v[:, i:i + 1])[0] for v in T[:3]]
+        return None if z == 0 else (x * pow(z, -1, p) % p,
+                                    y * pow(z, -1, p) % p)
+    for i in range(nfix):
+        if cls is ExtPoint:
+            want_i = H.ed_add(hc, H.ed_mul(hc, us[i], affine(P, i)),
+                              H.ed_mul(hc, vs[i], affine(Q, i)))
+        else:
+            want_i = H.ec_add(wc, H.ec_mul(wc, us[i], affine(P, i)),
+                              H.ec_mul(wc, vs[i], affine(Q, i)))
+        assert affine(got, i) == want_i, i
+    if c.fp_ctx.k == 8:          # kernels 5 and 8c are built at K = 8 only
+        joint = scalar_mul.straus_double_mul_public(c, ut, P, vt, Q)
+        ctx = c.fp_ctx
+        for a, b in ((0, 2), (1, 2)):           # x/z and y/z agree
+            assert torch.equal(nn.mont_mul(got[a], joint[b], ctx),
+                               nn.mont_mul(joint[a], got[b], ctx))
     with pytest.raises(ValueError):             # digits differ in nwin
         megamul.straus_mul(c, ptab, du, qtab, dv[:-1].contiguous(), cls)
 
 
 # -- Ed448: kernels 1, 8a, 8b and 7 at K = 14 (a = 1) ----------------------
-
-def _ed448_pairs(c, rng, n, dev):
-    """Edge lanes P + O, O + Q, O + O, P = Q, P = -Q, then random ones."""
-    p = c.fp_ctx.p_int
-    hc = H.EdCurve(p, c.a, c.d, c.gx, c.gy, c.q, c.h)
-    base = [H.ed_base_mul(hc, k) for k in _ints(rng, 16, c.q)]
-    a_pts = [base[i % 16] for i in range(n)]
-    b_pts = [base[(7 * i + 3) % 16] for i in range(n)]
-    b_pts[0] = a_pts[1] = a_pts[2] = b_pts[2] = (0, 1)
-    b_pts[3] = a_pts[3]
-    b_pts[4] = ((-a_pts[4][0]) % p, a_pts[4][1])
-    return (_ed_extended(c, rng, a_pts, dev),
-            _ed_extended(c, rng, b_pts, dev))
-
 
 @pytest.mark.parametrize("which", ["p", "q"])
 def test_mont_kernels_k14_match_plain(dev, which):
@@ -360,7 +393,7 @@ def test_mont_kernels_k14_match_plain(dev, which):
 def test_ed_kernels_k14_match_plain(dev):
     c = edwards.get_edwards_curve("ED448")
     rng = np.random.RandomState(79)
-    A, B = _ed448_pairs(c, rng, 777, dev)
+    A, B = _ed_pairs(c, rng, 777, dev)
     before = dict(edpoint.launches)
     got = edpoint.ed_add(c, A, B)
     assert all(torch.equal(g, w) for g, w in zip(
@@ -379,7 +412,7 @@ def test_ed_windowed_kernel_k14_matches_plain(dev):
     c = edwards.get_edwards_curve("ED448")
     rng = np.random.RandomState(80)
     n = 300
-    P, _ = _ed448_pairs(c, rng, n, dev)
+    P, _ = _ed_pairs(c, rng, n, dev)
     ms = [0, 1, 2, 1 << 100, 0, c.q - 1] + _ints(rng, n - 6, c.q)
     mt = nn.upload(nn.batch_to_limbs(ms, 14), dev)
     table = scalar_mul._build_mul_table(c, P)
@@ -418,17 +451,17 @@ def test_ed_wrappers_refuse_other_k_and_a(dev):
         edpoint.ed_dbln_add(e448, P, P, 2)
     tab = torch.zeros((16, 4, 14, 3), dtype=torch.int32, device=dev)
     digs = torch.zeros((112, 3), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):                    # 6-ed: K = 8 only
-        megamul.straus_mul(e448, tab, digs, tab, digs, ExtPoint)
+    with pytest.raises(ValueError, match="built for"):  # 6-ed: a = 1 at 14
+        megamul.straus_mul(m448, tab, digs, tab, digs, ExtPoint)
 
 
 # -- the wide instances refuse another a -------------------------------------
 
 def test_wide_wrappers_refuse_other_a(dev):
     """(K = 16, a = -3) and (K = 12, generic a) raise on the card: the wide
-    kernels 2-4 are built for (K = 12, a = -3) and (K = 16, generic a)
-    only, and kernels 5 and 6 for K = 8 only. The C entry points refuse
-    another a themselves (cudaErrorInvalidValue)."""
+    kernels 2-4 and 6 are built for (K = 12, a = -3) and (K = 16, generic
+    a) only, and kernel 5 for K = 8 only. The C entry points refuse another
+    a themselves (cudaErrorInvalidValue)."""
     import ctypes
     t1 = params.get_curve("BRAINPOOLP512T1")           # K = 16, a = -3
     r384 = params.get_curve("BRAINPOOLP384R1")         # K = 12, generic a
@@ -445,6 +478,8 @@ def test_wide_wrappers_refuse_other_a(dev):
                            device=dev)
         with pytest.raises(ValueError, match="built for"):
             megamul.windowed_mul(cv, tab, digs, PrjPoint)
+        with pytest.raises(ValueError, match="built for"):
+            megamul.straus_mul(cv, tab, digs, tab, digs, PrjPoint)
         outs = [torch.empty_like(one) for _ in range(3)]
         rc = getattr(point._lib("point_wide"), f"point_add_k{k}")(
             ctypes.byref(point.curve_struct(cv)),
@@ -456,7 +491,59 @@ def test_wide_wrappers_refuse_other_a(dev):
     P = PrjPoint(one, one, one)
     with pytest.raises(ValueError):                    # 5: K = 8 only
         point.point_dbln_add(c, P, P, 2)
-    tab = torch.zeros((16, 3, 16, 3), dtype=torch.int32, device=dev)
-    digs = torch.zeros((128, 3), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):                    # 6: K = 8 only
+    c = params.get_curve("P-521")                      # 6: not at K = 17
+    one = c.fp_ctx.from_ints([1, 2, 3], dev)
+    tab = torch.zeros((16, 3, 17, 3), dtype=torch.int32, device=dev)
+    digs = torch.zeros((131, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="built for"):
         megamul.straus_mul(c, tab, digs, tab, digs, PrjPoint)
+
+
+def _wrong_a(struct, kind):
+    """A copy of a kernels' context struct with another a_kind."""
+    s = type(struct).from_buffer_copy(struct)
+    s.a_kind = kind
+    return s
+
+
+@pytest.mark.parametrize("cname,stem,curve,model,wrong", [
+    ("point_add_k17", "point_p521", "P-521", "add", point.A_GENERIC),
+    ("point_dbl_k17", "point_p521", "P-521", "dbl", point.A_ZERO),
+    ("windowed_mul_k17_w4", "windowed_p521", "P-521", "w1",
+     point.A_GENERIC),
+    ("straus_mul_k12_w4", "straus_wide", "P-384", "w2", point.A_GENERIC),
+    ("straus_mul_k16_w4", "straus_wide", "BRAINPOOLP512R1", "w2",
+     point.A_M3),
+    ("straus_mul_ed_k14_w4", "straus_ed448", "ED448", "ed2",
+     edpoint.A_M1)])
+def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
+                                                model, wrong):
+    """Each C entry point at K = 17 and each wide Straus one returns
+    cudaErrorInvalidValue for a curve context whose a it is not built
+    for, and launches nothing."""
+    import ctypes
+    ed = model == "ed2"
+    c = (edwards.get_edwards_curve(curve) if ed
+         else params.get_curve(curve))
+    k = c.fp_ctx.k
+    ncoord = 4 if ed else 3
+    one = c.fp_ctx.from_ints([1, 2, 3], dev)
+    outs = [torch.empty_like(one) for _ in range(ncoord)]
+    cs = _wrong_a(edpoint.curve_struct(c) if ed else point.curve_struct(c),
+                  wrong)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if model in ("add", "dbl"):
+        ins = [one] * (6 if model == "add" else 3)
+        rc = getattr(point._lib(stem), cname)(
+            ctypes.byref(cs), point.ptr_array(ins), point.ptr_array(outs), 3,
+            stream)
+    else:
+        npairs = 1 if model == "w1" else 2
+        tab = torch.zeros((16, ncoord, k, 3), dtype=torch.int32, device=dev)
+        digs = torch.zeros((-(-c.scalar_bits() // 4), 3), dtype=torch.int32,
+                           device=dev)
+        rc = getattr(megamul._lib(stem), cname)(
+            ctypes.byref(cs), point.ptr_array([digs] * npairs),
+            digs.shape[0], point.ptr_array([tab] * npairs),
+            point.ptr_array(outs), 3, stream)
+    assert rc == 1                                     # cudaErrorInvalidValue
