@@ -33,7 +33,16 @@ and drives these paths at batch 8192, bytes in:
    P-384 (SHA-384, kernel 6 at K = 12) and BrainpoolP512r1 (SHA-512,
    kernel 6 at K = 16), eddsa_verify_batch("ed448" and "ed448ph",
    kernel 6-ed at K = 14), with the ECFSDSA and Ed448 KAT rows as
-   batches.
+   batches;
+6. the rest of the cofactor-1 registry (kernels 1-4 and 6 at K = 6, 7
+   and 10, at K = 12 with generic a, at K = 16 with a = -3; kernel 6 at
+   K = 17): ECDSA verify through verify_batch_async on one curve of each
+   (K, a), P-192, BrainpoolP192r1, secp192k1, P-224 (SHA-224),
+   BrainpoolP224r1, secp224k1, BrainpoolP320r1/t1 and BrainpoolP384r1
+   (SHA-384) and BrainpoolP512t1 (SHA-512), and at batch 256 on the six
+   curves that share an instance; ecfsdsa_verify_batch on P-521
+   (SHA-512), P-224, BrainpoolP384r1 and BrainpoolP512t1, and at batch
+   1024 on the other new kernel-6 instances.
 
 For each path it checks the results (valid lanes or batches, corrupted
 ones, the Wycheproof and KAT rows), counts the kernel launches of the
@@ -50,10 +59,12 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 BATCH = 8192            # the verify batch of the headline (bench.py:413)
@@ -82,17 +93,22 @@ def fsqr_slots(k: int) -> int:
 K = 8
 FMUL_SLOTS = fmul_slots(K)
 FSQR_SLOTS = fsqr_slots(K)
-PER_WINDOW = (22, 30)                                  # (squares, products), w=4
+# per window (squares, products) of kernel 4 (one pair) and kernel 6 (two
+# pairs: one complete add more), w = 4, by formula set: 4 dbl-2001-b, the
+# to_jac / from_jac pair and one RCB add a pair; a doubling is 5S + 3M at
+# a = -3, 6S + 2M at a = 0 and 7S + 3M for generic a, an add 14 products
+# (18 for generic a: the products by a and a^2)
+W_PER_WINDOW = {"m3": ((22, 30), (22, 44)), "a0": ((26, 26), (26, 40)),
+                "ga": ((30, 34), (30, 52))}
+# the products of kernel 2 (an add) and kernel 3 (a double, besides its
+# three squares) by formula set
+ADD_DBL_PRODUCTS = {"m3": (14, 10), "a0": (14, 10), "ga": (18, 14)}
 ED_PER_WINDOW = (16, 25)                # 4 dbl-2008-hwcd + add-2008-hwcd-3
 ED448_PER_WINDOW = (16, 26)             # the same with add-2008-hwcd (a = 1)
 ED448_ADD_PRODUCTS = 10                 # add-2008-hwcd: one product more
-STRAUS_PER_WINDOW = (22, 44)            # kernel 6: one more complete add
 ED_STRAUS_PER_WINDOW = (16, 34)         # kernel 6-ed: one more extended add
-GENERIC_STRAUS_PER_WINDOW = (30, 52)    # kernel 6 for generic a
 ED448_STRAUS_PER_WINDOW = (16, 36)      # kernel 6-ed with add-2008-hwcd
 JOINT_NDBL = 2                          # the joint Straus step: 2^2*acc + T
-# ECDSA on K = 12 (a = -3) and K = 16 (generic a)
-GENERIC_PER_WINDOW = (30, 34)          # the same for generic a (w = 4)
 # the ECDSA paths: curve -> label (P-256 at K = 8, P-384 at K = 12, the
 # 512-bit curves at K = 16, P-521 at K = 17), the hash of each path's
 # fixture and batch (SHA-256 unless named: P-521 with SHA-512, as JWS
@@ -102,19 +118,37 @@ W_CURVES = {"SECP256R1": "P-256", "SECP384R1": "P-384",
             "SECP521R1": "P-521"}
 W_HASH = {"SECP521R1": "SHA512"}
 W_WYCHEPROOF = ("SECP256R1", "SECP384R1")
-# kernels 1-4: base name -> (the TPU kernel in libecc_tpu/ops/pallas, the
-# source of each K's instance)
-_WIDE_POINT = {8: "point.cu", 12: "point_wide.cu", 16: "point_wide.cu",
-               17: "point_p521.cu"}
-W_KERNELS = {
-    "mont_mul": ("mont.py:297", dict.fromkeys(_WIDE_POINT, "mont.cu")),
-    "mont_sqr": ("mont.py:297", dict.fromkeys(_WIDE_POINT, "mont.cu")),
-    "point_add": ("point.py:470", _WIDE_POINT),
-    "point_dbl": ("point.py:489", _WIDE_POINT),
-    "windowed_mul": ("megamul.py:161", {
-        8: "windowed.cu", 12: "windowed_wide.cu", 16: "windowed_wide.cu",
-        17: "windowed_p521.cu"}),
-}
+# kernels 1-4: base name -> the TPU kernel in libecc_tpu/ops/pallas
+W_KERNELS = {"mont_mul": "mont.py:297", "mont_sqr": "mont.py:297",
+             "point_add": "point.py:470", "point_dbl": "point.py:489",
+             "windowed_mul": "megamul.py:161"}
+# the rest of the cofactor-1 registry: one curve of each later (K, a)
+# instance of kernels 2-4 and 6 -> (label, the hash its users pair with
+# it), ECDSA at batch 8192; the curves that share an instance, ECDSA at
+# SHARED_BATCH; ECFSDSA at batch 8192 (P-521 from the ECDSA paths above)
+# and at FSDSA_SMALL on the other new kernel-6 instances
+R_CURVES = {"SECP192R1": ("P-192", "SHA256"),
+            "BRAINPOOLP192R1": ("BrainpoolP192r1", "SHA256"),
+            "SECP192K1": ("secp192k1", "SHA256"),
+            "SECP224R1": ("P-224", "SHA224"),
+            "BRAINPOOLP224R1": ("BrainpoolP224r1", "SHA256"),
+            "SECP224K1": ("secp224k1", "SHA256"),
+            "BRAINPOOLP320R1": ("BrainpoolP320r1", "SHA384"),
+            "BRAINPOOLP320T1": ("BrainpoolP320t1", "SHA384"),
+            "BRAINPOOLP384R1": ("BrainpoolP384r1", "SHA384"),
+            "BRAINPOOLP512T1": ("BrainpoolP512t1", "SHA512")}
+R_SHARED = {"BRAINPOOLP192T1": "BrainpoolP192t1",
+            "SM2P192TEST": "SM2P192TEST",
+            "BRAINPOOLP224T1": "BrainpoolP224t1", "BIGN512V1": "BIGN512V1",
+            "GOST_R3410_2012_512_PARAMSETA": "GOST 2012 512 A",
+            "GOST_R3410_2012_512_PARAMSETB": "GOST 2012 512 B"}
+SHARED_BATCH = 256
+FSDSA_FULL = ("SECP521R1", "SECP224R1", "BRAINPOOLP384R1", "BRAINPOOLP512T1")
+FSDSA_SMALL = 1024
+# ECFSDSA on each new kernel-6 instance: curve -> (label, hash), the
+# FSDSA_FULL ones first
+F_CURVES = {cn: ({"SECP521R1": ("P-521", "SHA512")} | R_CURVES)[cn]
+            for cn in (*FSDSA_FULL, *R_CURVES)}
 # this script's directory: the root of a checkout (__file__ is unset when
 # the script is piped on standard input; the directory is then the cwd)
 HERE = os.path.dirname(os.path.abspath(globals().get("__file__",
@@ -252,6 +286,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # the plain versions and the entry points issue many small tensor
+    # operations: inference mode spares each its autograd bookkeeping
+    with torch.inference_mode():
+        return run(torch)
+
+
+def run(torch) -> int:
+    """Build, check and measure on the card (see the module's docstring)."""
     import numpy as np
     from libecc_tpu_torch import stages
     from libecc_tpu_torch.nn import core as nn
@@ -282,17 +324,25 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
 
-    # 2. build -----------------------------------------------------------
-    build.library("mont")
-    print(f"build: {build.build_seconds:.1f} s for "
-          f"{sorted(build.build_log) or 'cached libraries'}; each nvcc "
-          "done at (s): " + json.dumps({k_: round(v, 1) for k_, v in
-                                        build.build_file_seconds.items()}))
-    for stem, log in sorted(build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line \
-                    or "Compiling entry" in line:
-                print(f"ptxas[{stem}]: {line.strip()}")
+    # 2. build: nvcc (one process a source) runs from a thread of its own
+    # while the host makes the fixtures and combs below, which need no
+    # kernel; wait_for_build() joins it before the first launch
+    nvcc_pool = ThreadPoolExecutor(1)
+    built = nvcc_pool.submit(build.library, "mont")
+
+    def wait_for_build():
+        built.result()
+        nvcc_pool.shutdown()
+        print(f"build: {build.build_seconds:.1f} s for "
+              f"{sorted(build.build_log) or 'cached libraries'}; each nvcc "
+              "done at (s): " + json.dumps({k_: round(v, 1) for k_, v in
+                                            build.build_file_seconds.items()}))
+        for stem, log in sorted(build.build_log.items()):
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line \
+                        or "Compiling entry" in line:
+                    print(f"ptxas[{stem}]: {line.strip()}")
+        lap("the build")
 
     ec = edwards.get_edwards_curve("ED25519")
     ectx = ec.fp_ctx
@@ -429,7 +479,7 @@ def main() -> int:
                 "device_ms": dms, "plain_ms": round(pms, 4),
                 "bound_ms": round(bms, 6), "bound_by": by}
 
-    def time_kernels(kern, path_counts, batch_counts, path):
+    def time_kernels(kern, path_counts, batch_counts, path, n=N):
         for name, args in kern.items():
             lines.append({
                 "name": name, "route": "cuda",
@@ -437,7 +487,7 @@ def main() -> int:
                 "replaces": replaces[name], "path": path,
                 "launches": path_counts[name],
                 "launches_per_batch": batch_counts[name],
-                **measure(name, *args, N),
+                **measure(name, *args, n),
                 # over every comparison of this kernel in the run
                 "max_abs_err": results[name]["max_abs_err"],
                 "library_ms": None})
@@ -464,17 +514,35 @@ def main() -> int:
                f"kernel 1 at K = {k_}{where} disagrees with Python integers")
         return errs
 
-    lap("the build")
-
     # 3. ECDSA verify on the short-Weierstrass curves: P-256 (K = 8,
     # a = -3), P-384 (K = 12, a = -3), BrainpoolP512r1 and GOST512 (K = 16,
     # generic a) ----------------------------------------------------------
-    def w_names(k_):
-        """The names of kernels 1-4 at K = k_ in the launch counts."""
-        return {base: (megamul._KERNELS[(k_, "w", 1)][0]
-                       if base == "windowed_mul"
-                       else build.kernel_name(base, k_))
-                for base in W_KERNELS}
+    def a_tag(cv):
+        return "m3" if cv.a_is_m3 else "a0" if cv.a_is_0 else "ga"
+
+    def w_names(cv):
+        """The names of the curve's kernels 1-4 (its K and a) in the launch
+        counts."""
+        k_ = cv.fp_ctx.k
+        return {"mont_mul": build.kernel_name("mont_mul", k_),
+                "mont_sqr": build.kernel_name("mont_sqr", k_),
+                "point_add": point.instance_name("point_add", cv),
+                "point_dbl": point.instance_name("point_dbl", cv),
+                "windowed_mul": megamul.kernel_name_of(cv, 1)}
+
+    def note_sources(cv):
+        """Record the source and the TPU kernel of the curve's kernels 1-4
+        and 6 for the rows."""
+        stem = point.BUILT[(cv.fp_ctx.k, point.a_kind(cv))][0]
+        for base, name in w_names(cv).items():
+            source[name] = ("mont.cu" if base.startswith("mont") else
+                            f"{megamul.instance(cv, 'w', 1)[2]}.cu"
+                            if base == "windowed_mul" else f"{stem}.cu")
+            replaces[name] = f"libecc_tpu/ops/pallas/{W_KERNELS[base]}"
+        straus = megamul.instance(cv, "w", 2)
+        if straus is not None:
+            source[straus[0]] = f"{straus[2]}.cu"
+            replaces[straus[0]] = "libecc_tpu/ops/pallas/megamul.py:224"
 
     def w_points(cv, cw, n, uniq=64):
         """n affine points of cv, uniq distinct ones repeated."""
@@ -503,18 +571,19 @@ def main() -> int:
         return (ctx_.to_ints(P.x[:, i:i + 1])[0] * zi % pc,
                 ctx_.to_ints(P.y[:, i:i + 1])[0] * zi % pc)
 
-    def check_w_kernels(cv, cw, label, compare):
+    def check_w_kernels(cv, cw, label, compare, mont_n=MONT_N):
         """Kernels 1-4 of one curve against their plain versions, bitwise,
         and their first lanes against the host oracle: kernel 1 under p and
         q; kernels 2 and 3 with the lanes P + O, O + Q, O + O, P = Q and
         P = -Q; kernel 4 at N lanes with the window edge scalars, two short
         scalars and the identity on lane 7 (against its plain version here
         with compare, else in the kernel's timed row, on the same inputs).
+        Kernel 1 runs at mont_n lanes.
         Returns the point pairs (affine A, B and projective PA, PB) of
         kernels 2 and 3 and kernel 4's table and digits."""
-        names = w_names(cv.fp_ctx.k)
-        check_mont(cv.fp_ctx, f"{label}'s p")
-        check_mont(cv.q_ctx, f"{label}'s q")
+        names = w_names(cv)
+        check_mont(cv.fp_ctx, f"{label}'s p", mont_n)
+        check_mont(cv.q_ctx, f"{label}'s q", mont_n)
         A, B = w_points(cv, cw, POINT_N), w_points(cv, cw, POINT_N)
         B[0], A[1] = None, None                         # identity lanes
         A[2] = B[2] = None
@@ -555,29 +624,31 @@ def main() -> int:
                    "oracle")
         return A, B, PA, PB, (table, digs)
 
-    def ecdsa_fixture(cv, cw, label, hname):
-        """UNIQUE signatures from the host signer (hash hname of 32-byte
-        messages) tiled to the batch, their key batch, and the corrupted
-        batch: r + 1, s = 0, s = q, another message, r = q, and r below
-        p - q (the r + q candidate is tried and rejects) on lanes 0-59,
-        and a key batch with off-curve keys on lanes 60-69."""
+    def ecdsa_fixture(cv, cw, label, hname, unique=UNIQUE, batch=BATCH):
+        """unique signatures from the host signer (hash hname of 32-byte
+        messages) tiled to the batch, their keys, and the corrupted batch:
+        r + 1, s = 0, s = q, another message, r = q, and r = 12345 + i
+        (where q < p, below p - q: the r + q candidate is tried and
+        rejects) on lanes 0-59, and a key batch with off-curve keys on
+        lanes 60-69."""
         qv, pc = cv.q, cv.fp_ctx.p_int
+        copies = batch // unique
         nbq = (qv.bit_length() + 7) // 8
         digest = getattr(hashlib, hname.lower())
         t0 = time.perf_counter()
-        ds = [1 + v % (qv - 1) for v in rand_ints(UNIQUE, qv)]
+        ds = [1 + v % (qv - 1) for v in rand_ints(unique, qv)]
         pubs = [H.ec_base_mul(cw, d) for d in ds]
-        msgs = [rng.bytes(32) for _ in range(UNIQUE)]
+        msgs = [rng.bytes(32) for _ in range(unique)]
         sigs = []
         for d, msg in zip(ds, msgs):
             e = H.trunc_msb_mod_q(digest(msg).digest(), qv)
             r, s = H.ecdsa_sign_ref(cw, d, e, 1 + rand_ints(1, qv - 1)[0])
             sigs.append(r.to_bytes(nbq, "big") + s.to_bytes(nbq, "big"))
-        pubs, msgs, sigs = pubs * reps, msgs * reps, sigs * reps
+        pubs, msgs, sigs = pubs * copies, msgs * copies, sigs * copies
         kb = K_.pubkey_batch_from_affine_ints(
             cv, "ECDSA", [P_[0] for P_ in pubs], [P_[1] for P_ in pubs])
-        print(f"{label} fixture: {UNIQUE} unique host signatures ({hname}) "
-              f"tiled to {BATCH} in {time.perf_counter() - t0:.1f} s")
+        print(f"{label} fixture: {unique} unique host signatures ({hname}) "
+              f"tiled to {batch} in {time.perf_counter() - t0:.1f} s")
         bad_m, bad_s = list(msgs), list(sigs)
 
         def put(i, r=None, s=None):
@@ -597,19 +668,19 @@ def main() -> int:
             put(i, r=qv)
         for i in range(50, 60):          # r < p - q: the r + q candidate
             put(i, r=12345 + i)          # is tried and rejects
-        want_bad = np.ones(BATCH, bool)
+        want_bad = np.ones(batch, bool)
         want_bad[:60] = False
         off = list(range(60, 70))                       # off-curve keys
         bad_pub = PrjPoint(*[t.clone() for t in kb.pub])
         bad_pub.y[:, off] = cv.fp_ctx.from_ints(
             [(pubs[i][1] + 1) % pc for i in off], dev)
-        want_off = np.ones(BATCH, bool)
+        want_off = np.ones(batch, bool)
         want_off[off] = False
         return SimpleNamespace(
-            hname=hname, digest=digest,
+            hname=hname, digest=digest, pubs=pubs,
             kb=kb, msgs=msgs, sigs=sigs, bad_m=bad_m, bad_s=bad_s,
             want_bad=want_bad, want_off=want_off,
-            kb_off=K_.KeyBatch(curve=cv, alg="ECDSA", n=BATCH, pub=bad_pub))
+            kb_off=K_.KeyBatch(curve=cv, alg="ECDSA", n=batch, pub=bad_pub))
 
     def ecdsa_entry_points(cv, fx, label):
         """The four ECDSA entry points on the valid, the corrupted and the
@@ -647,7 +718,7 @@ def main() -> int:
         path = snapshot()
         print(f"{label} path launches:",
               json.dumps({k_: v for k_, v in path.items() if v}))
-        for name in w_names(cv.fp_ctx.k).values():
+        for name in w_names(cv).values():
             _check(path[name] >= 1,
                    f"kernel {name} was not launched on the {label} path")
         print(f"{label} path ({hn}): valid lanes accept; r + 1, s = 0, "
@@ -721,13 +792,13 @@ def main() -> int:
         ctx_, k_ = cv.fp_ctx, cv.fp_ctx.k
         fe, fmul, fsqr = 4 * k_, fmul_slots(k_), fsqr_slots(k_)
         # per window (squares, products); an add's and a double's products
-        per_win = PER_WINDOW if cv.a_is_m3 else GENERIC_PER_WINDOW
-        add_mu, dbl_mu = (14, 10) if cv.a_is_m3 else (18, 14)
+        per_win = W_PER_WINDOW[a_tag(cv)][0]
+        add_mu, dbl_mu = ADD_DBL_PRODUCTS[a_tag(cv)]
         a_ = nn.upload(nn.batch_to_limbs(rand_ints(N, ctx_.p_int), k_), dev)
         b_ = nn.upload(nn.batch_to_limbs(rand_ints(N, ctx_.p_int), k_), dev)
         tab, digs = wtab
         nwin = digs.shape[0]
-        names = w_names(k_)
+        names = w_names(cv)
         return {
             names["mont_mul"]: (lambda: mont.mont_mul(a_, b_, ctx_),
                                 lambda: nn.mont_mul(a_, b_, ctx_), 200, 20,
@@ -749,6 +820,47 @@ def main() -> int:
                 N * nwin * (per_win[0] * fsqr + per_win[1] * fmul)),
         }
 
+    def w_fixture(cw, sign, batch=BATCH):
+        """min(UNIQUE, batch) keys, 32-byte messages and signatures
+        sign(cw, d, m) from the host signers, tiled to the batch."""
+        unique = min(UNIQUE, batch)
+        ds = [1 + v % (cw.q - 1) for v in rand_ints(unique, cw.q)]
+        pubs_ = [H.ec_base_mul(cw, d) for d in ds]
+        msgs_ = [rng.bytes(32) for _ in range(unique)]
+        sigs_ = [sign(cw, d, m_) for d, m_ in zip(ds, msgs_)]
+        copies = batch // unique
+        return pubs_ * copies, msgs_ * copies, sigs_ * copies
+
+    # The host's share of the ECDSA and registry ECFSDSA paths, made while
+    # the kernels build: each curve's comb of G (the host oracle's, then
+    # uploaded; cached for the process) and its host-signed fixtures.
+    hosts, combs, fixtures, f_fix = {}, {}, {}, {}
+    e_hash = {**{cn: (lb, W_HASH.get(cn, "SHA256"))
+                 for cn, lb in W_CURVES.items()},
+              **R_CURVES, **{cn: (lb, "SHA256") for cn, lb in R_SHARED.items()}}
+    for cname, (label, hname) in e_hash.items():
+        cv = params.get_curve(cname)
+        cw = H.WCurve(cv.fp_ctx.p_int, cv.a, cv.b, cv.gx, cv.gy, cv.q, cv.h)
+        hosts[cname] = (cv, cw)
+        t0 = time.perf_counter()
+        combs[cname] = (scalar_mul._comb_table_dev(cv, cv.scalar_bits(), dev),
+                        time.perf_counter() - t0)
+        fixtures[cname] = ecdsa_fixture(
+            cv, cw, label, hname,
+            *((SHARED_BATCH, SHARED_BATCH) if cname in R_SHARED else ()))
+    for cname, (label, hname) in F_CURVES.items():
+        cv, cw = hosts[cname]
+        pubs_, msgs_, sigs_ = w_fixture(
+            cw, lambda cw_, d, m_, hn=hname: H.ecfsdsa_sign_ref(
+                cw_, d, 1 + rand_ints(1, cw_.q - 1)[0], m_, hn),
+            BATCH if cname in FSDSA_FULL else FSDSA_SMALL)
+        f_fix[cname] = (K_.pubkey_batch_from_affine_ints(
+            cv, "ECFSDSA", [P_[0] for P_ in pubs_], [P_[1] for P_ in pubs_]),
+            msgs_, sigs_)
+    print(f"host fixtures and combs of {len(e_hash)} curves made while the "
+          "kernels build")
+    wait_for_build()
+
     # Per curve: its comb of G (built once per process), kernels 1-4
     # against their plain versions, the host-signed fixture, the entry
     # points on valid and corrupted batches with the path's own launch
@@ -761,11 +873,8 @@ def main() -> int:
     # (the unfused path: "digest" where the fused one marks "hash").
     w_curves, w_counts, w_report = {}, {}, {}
     for cname, label in W_CURVES.items():
-        cv = params.get_curve(cname)
-        cw = H.WCurve(cv.fp_ctx.p_int, cv.a, cv.b, cv.gx, cv.gy, cv.q, cv.h)
-        t0 = time.perf_counter()
-        comb_ = scalar_mul._comb_table_dev(cv, cv.scalar_bits(), dev)
-        comb_s = time.perf_counter() - t0
+        cv, cw = hosts[cname]
+        comb_, comb_s = combs[cname]
         comb_bytes = comb_.numel() * comb_.element_size()
         print(f"{label} comb: {comb_.shape[0]} windows x 256 entries, "
               f"{comb_bytes} bytes on the device, first build {comb_s:.2f} s "
@@ -775,7 +884,7 @@ def main() -> int:
                                              cname == "GOST512")
         w_curves[cname] = (cv, cw, A, B, PA, PB)
         hname = W_HASH.get(cname, "SHA256")
-        fx = ecdsa_fixture(cv, cw, label, hname)
+        fx = fixtures[cname]
         w_counts[cname] = ecdsa_entry_points(cv, fx, label)
         if cname in W_WYCHEPROOF:
             wycheproof_ecdsa(cv, cname, label)
@@ -803,17 +912,11 @@ def main() -> int:
                   f"{dt * 1e3:.1f} ms, {piped:.1f} verifies/s")
         if cname == "GOST512":
             continue
-        for base, name in w_names(cv.fp_ctx.k).items():
-            tpu, srcs = W_KERNELS[base]
-            source[name] = srcs[cv.fp_ctx.k]
-            replaces[name] = f"libecc_tpu/ops/pallas/{tpu}"
+        note_sources(cv)
         time_kernels(w_kern(cv, PA, PB, wtab), w_counts[cname],
                      rep["launches_per_batch"], f"{label} ECDSA verify")
     for row in lines:
-        if row["name"] in [*w_names(16).values(), *w_names(17).values()]:
-            # the large-K body backend these instances stand for
-            row["also_replaces"] = "libecc_tpu/ops/pallas/rows.py:129"
-        if row["name"] in w_names(16).values():
+        if row["name"] in w_names(w_curves["GOST512"][0]).values():
             row["gost512_launches"] = w_counts["GOST512"][row["name"]]
     print("ECDSA verify: kernels 1-4 at K = 8 (P-256), K = 12 (P-384), "
           "K = 16 (BrainpoolP512r1 and GOST512) and K = 17 (P-521) are "
@@ -1288,8 +1391,6 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"libecc_tpu_torch/csrc/{source[name]}",
             "replaces": replaces[name], "path": "Ed448 verify",
-            # the large-K body backend these K = 14 instances stand for
-            "also_replaces": "libecc_tpu/ops/pallas/rows.py:129",
             "launches": x_counts[name],
             "launches_per_batch": x_per_batch[name],
             **measure(name, *args, xn if name.startswith("mont") else N),
@@ -1320,7 +1421,7 @@ def main() -> int:
                f"ed_dbln_add lane {i} disagrees with the host oracle")
 
     def straus_check(cv, hcv, P1, P2, cls, label, compare):
-        """Kernel 6 or 6-ed of cv on the N lanes of P1 and P2 (identity,
+        """Kernel 6 or 6-ed of cv on the lanes of P1 and P2 (identity,
         P = Q and P = -Q lanes among them): zero and short scalars, the
         window edge scalars in u and, two lanes on, in v; the special lanes
         against the host oracle's u*P + v*Q (hcv: the host curve) and, with
@@ -1331,9 +1432,9 @@ def main() -> int:
         edges = H.window_edge_scalars(cv.q)
         us = [0, 0, 1 << 100, 1, (1 << 37) + 3] + edges + [0, 1]
         vs = [0, 1 << 100, 0, 5, 3, 0, 5] + edges
-        nfix = len(vs)
-        us += rand_ints(N - len(us), cv.q)
-        vs += rand_ints(N - len(vs), cv.q)
+        nfix, n = len(vs), P1.x.shape[1]
+        us += rand_ints(n - len(us), cv.q)
+        vs += rand_ints(n - len(vs), cv.q)
         kq, nbits = cv.q_ctx.k, cv.scalar_bits()
         ut = nn.upload(nn.batch_to_limbs(us, kq), dev)
         vt = nn.upload(nn.batch_to_limbs(vs, kq), dev)
@@ -1342,14 +1443,14 @@ def main() -> int:
                 scalar_mul._build_mul_table(cv, P2),
                 scalar_mul._window_digits(vt, nbits))
         ed_ = cls is ExtPoint
-        name = megamul._KERNELS[(cv.fp_ctx.k, "ed" if ed_ else "w", 2)][0]
+        name = megamul.kernel_name_of(cv, 2, "ed" if ed_ else "w")
         got = megamul.straus_mul(cv, *tabs, cls)
         if compare:
             t0 = time.perf_counter()
             want = megamul.straus_mul_plain(cv, *tabs, cls)
-            print(f"{name} plain ({label}) at N={N}: "
+            print(f"{name} plain ({label}) at N={n}: "
                   f"{time.perf_counter() - t0:.1f} s")
-            cmp(name, got, want, N, f" ({label}, {tabs[1].shape[0]} windows)")
+            cmp(name, got, want, n, f" ({label}, {tabs[1].shape[0]} windows)")
         for i in range(nfix):
             if ed_:
                 ok = ed_affine_of(got, i, cv) == H.ed_add(
@@ -1384,13 +1485,6 @@ def main() -> int:
     # BrainpoolP512r1 (SHA-512), BIP0340 on secp256k1, Ed448ph; Ed25519
     # and Ed448 take their verify paths' own
     t0 = time.perf_counter()
-
-    def w_fixture(cw, sign):
-        ds = [1 + v % (cw.q - 1) for v in rand_ints(UNIQUE, cw.q)]
-        pubs_ = [H.ec_base_mul(cw, d) for d in ds]
-        msgs_ = [rng.bytes(32) for _ in range(UNIQUE)]
-        sigs_ = [sign(cw, d, m_) for d, m_ in zip(ds, msgs_)]
-        return pubs_ * reps, msgs_ * reps, sigs_ * reps
 
     def flip_last(sg):                  # lowest bit of s (big-endian)
         return sg[:-1] + bytes([sg[-1] ^ 1])
@@ -1462,9 +1556,9 @@ def main() -> int:
     bv_counts = snapshot()
     print("batch-verify path launches:",
           json.dumps({k_: v for k_, v in bv_counts.items() if v}))
-    straus_names = [megamul._KERNELS[key][0] for key in (
-        (8, "w", 2), (8, "ed", 2), (12, "w", 2), (16, "w", 2),
-        (14, "ed", 2))]
+    straus_names = [megamul.kernel_name_of(cv, 2, model) for cv, model in (
+        (c, "w"), (ec, "ed"), (w_curves["SECP384R1"][0], "w"),
+        (w_curves["BRAINPOOLP512R1"][0], "w"), (x4, "ed"))]
     for name in straus_names + [
             "mont_mul", "mont_sqr", "point_add", "point_dbl", "ed_add",
             "ed_dbl", "point_add_k12", "point_dbl_k12", "point_add_k16",
@@ -1602,30 +1696,36 @@ def main() -> int:
     # of them 0, and the time depends on the digits: at K = 12 to 16 the
     # kernel takes 14-29% longer on an H100 when every lane's scalars are
     # full-size. Kernels 5 and 8c at the joint-table Straus's shapes.
-    def straus_row(label, path, per_win):
+    def straus_row(label, batch_tabs, per_win):
+        """A kernel-6 or 6-ed row's arguments on a batch's own tables and
+        digits (batch_tabs) with straus_in[label]'s special lanes."""
         cv, _, _, cls, _, _, check_tabs, nfix = straus_in[label]
         tabs = []
-        for b, t in zip(bv_marked[path]["table"], check_tabs):
-            _check(b.shape == t.shape, f"{label}: the {path} batch's tables "
+        for b, t in zip(batch_tabs, check_tabs):
+            _check(b.shape == t.shape, f"{label}: the batch's tables "
                    f"{tuple(b.shape)} differ in shape from {tuple(t.shape)}")
             b = b.clone()
             b[..., :nfix] = t[..., :nfix]
             tabs.append(b)
         k_, ncoord = cv.fp_ctx.k, len(cls._fields)
-        fe_, nwin = 4 * k_, tabs[1].shape[0]
+        fe_, nwin, n = 4 * k_, tabs[1].shape[0], tabs[0].shape[-1]
         return (lambda: megamul.straus_mul(cv, *tabs, cls),
                 lambda: megamul.straus_mul_plain(cv, *tabs, cls), 5, 1,
-                N * (2 * 16 * ncoord * fe_ + 2 * nwin * 4 + ncoord * fe_),
-                N * nwin * (per_win[0] * fsqr_slots(k_)
+                n * (2 * 16 * ncoord * fe_ + 2 * nwin * 4 + ncoord * fe_),
+                n * nwin * (per_win[0] * fsqr_slots(k_)
                             + per_win[1] * fmul_slots(k_)))
 
     bv_kern = dict(zip(straus_names, (
-        straus_row("P-256", "ecfsdsa_p256", STRAUS_PER_WINDOW),
-        straus_row("Ed25519", "ed25519", ED_STRAUS_PER_WINDOW),
-        straus_row("P-384", "ecfsdsa_p384", STRAUS_PER_WINDOW),
-        straus_row("BrainpoolP512r1", "ecfsdsa_bp512",
-                   GENERIC_STRAUS_PER_WINDOW),
-        straus_row("Ed448", "ed448", ED448_STRAUS_PER_WINDOW))))
+        straus_row("P-256", bv_marked["ecfsdsa_p256"]["table"],
+                   W_PER_WINDOW["m3"][1]),
+        straus_row("Ed25519", bv_marked["ed25519"]["table"],
+                   ED_STRAUS_PER_WINDOW),
+        straus_row("P-384", bv_marked["ecfsdsa_p384"]["table"],
+                   W_PER_WINDOW["m3"][1]),
+        straus_row("BrainpoolP512r1", bv_marked["ecfsdsa_bp512"]["table"],
+                   W_PER_WINDOW["ga"][1]),
+        straus_row("Ed448", bv_marked["ed448"]["table"],
+                   ED448_STRAUS_PER_WINDOW))))
     joint_kern = {
         "point_dbln_add": (
             lambda: point.point_dbln_add(c, PA, PB, JOINT_NDBL),
@@ -1647,7 +1747,7 @@ def main() -> int:
     })
     for inst in megamul._KERNELS.values():
         if inst[0] in bv_kern:
-            source[inst[0]] = f"{inst[3]}.cu"
+            source[inst[0]] = f"{inst[2]}.cu"
             replaces[inst[0]] = "libecc_tpu/ops/pallas/megamul.py:224"
     per_batch_all = dict.fromkeys(bv_counts, 0)     # the seven batches
     for rep in bv_report.values():
@@ -1657,15 +1757,192 @@ def main() -> int:
     time_kernels(bv_kern, bv_counts, per_batch_all, "batch verification")
     time_kernels(joint_kern, joint_counts, joint_counts,
                  "joint-table Straus")
-    for row in lines[n_before:]:
-        if row["name"] in ("straus_mul_k16_w4", "straus_mul_ed_k14_w4"):
-            # the large-K body backend these instances stand for
-            row["also_replaces"] = "libecc_tpu/ops/pallas/rows.py:129"
     for row in lines[:n_before]:          # the older kernels on these paths
         row["batch_verify_launches"] = bv_counts[row["name"]]
         row["joint_straus_launches"] = joint_counts[row["name"]]
 
     lap("the batch-verify paths")
+
+    # 7. the rest of the cofactor-1 registry: kernels 1-4 and 6 at K = 6, 7
+    # and 10, at K = 12 (generic a) and K = 16 (a = -3), kernel 6 at K = 17.
+    # ECDSA verify through verify_batch_async at batch 8192 on one curve of
+    # each (K, a): kernels 1-4 against their plain versions (kernel 1 at the
+    # path's 8192 lanes; kernel 4 in its timed row), the host-signed
+    # fixture, the valid, corrupted and off-curve batches with the path's
+    # own launch counts, the batch's measurements and each kernel at the
+    # path's shapes. On secp224k1 (q > p) a batch with a lane whose r is in
+    # [p, q) and r - p = x(W) rejects that lane.
+    def q_above_p_lane(cv, cw, fx, label):
+        p_, q_ = cv.fp_ctx.p_int, cv.q
+        xs_ = list(range(1, 65))
+        ys_, ex = shortw.y_from_x(cv, cv.fp_ctx.from_ints(xs_, dev))
+        i = int(torch.nonzero(ex)[0])
+        W = (xs_[i], cv.fp_ctx.to_ints(ys_[:, i:i + 1])[0])
+        r, s = p_ + W[0], 1 + rand_ints(1, q_ - 1)[0]
+        m = rng.bytes(32)
+        e = H.trunc_msb_mod_q(fx.digest(m).digest(), q_)
+        si = pow(s, -1, q_)
+        u, v = e * si % q_, r * si % q_
+        Y = H.ec_mul(cw, pow(v, -1, q_), H.ec_add(
+            cw, W, H.ec_neg(cw, H.ec_base_mul(cw, u))))
+        _check(r < q_ and not H.ecdsa_verify_ref(cw, Y, e, r, s),
+               f"{label}: the r in [p, q) lane is not what it should be")
+        nb = (q_.bit_length() + 7) // 8
+        pts = [Y] + fx.pubs[1:64]
+        kb64 = K_.pubkey_batch_from_affine_ints(
+            cv, "ECDSA", [P_[0] for P_ in pts], [P_[1] for P_ in pts])
+        acc = ecdsa.verify_batch_async(
+            kb64, [m] + fx.msgs[1:64],
+            [r.to_bytes(nb, "big") + s.to_bytes(nb, "big")] + fx.sigs[1:64],
+            fx.hname).cpu().numpy()
+        _check(acc.tolist() == [False] + [True] * 63,
+               f"{label}: r in [p, q) with r - p = x(W): {acc[:4]}")
+        print(f"{label}: r = p + x(W) < q rejects on the fused path, beside "
+              "63 valid lanes")
+
+    def note_launches(names, counts, where):
+        """Record the launches of another path in the rows of names."""
+        for row in lines:
+            if row["name"] in names and counts.get(row["name"]):
+                row.setdefault("other_paths", {})[where] = counts[row["name"]]
+
+    r_report, r_curves = {}, {}
+    for cname, (label, hname) in R_CURVES.items():
+        cv, cw = hosts[cname]
+        comb_, comb_s = combs[cname]
+        _, _, PA_, PB_, wtab = check_w_kernels(cv, cw, label, False, N)
+        r_curves[cname] = (cv, cw, PA_, PB_)
+        fx = fixtures[cname]
+        reset()
+        acc = ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs, hname)
+        _check(bool(acc.all()), f"{label}: verify_batch_async rejected "
+                                f"{int((~acc).sum())} valid lanes")
+        for what, kb_, ms, want in (
+                ("corrupted lanes", fx.kb, fx.bad_m, fx.want_bad),
+                ("off-curve keys", fx.kb_off, fx.msgs, fx.want_off)):
+            ss = fx.bad_s if kb_ is fx.kb else fx.sigs
+            got = ecdsa.verify_batch_async(kb_, ms, ss, hname).cpu().numpy()
+            _check((got == want).all(), f"{label}: {what} wrong "
+                   f"({np.flatnonzero(got != want)[:20].tolist()})")
+        path = snapshot()
+        print(f"{label} path launches:",
+              json.dumps({k_: v for k_, v in path.items() if v}))
+        for name in w_names(cv).values():
+            _check(path[name] >= 1,
+                   f"kernel {name} was not launched on the {label} path")
+        print(f"{label} path ({hname}): valid lanes accept; r + 1, s = 0, "
+              "s = q, another message, r = q, r = 12345 + i and off-curve "
+              "keys reject (verify_batch_async)")
+        if cv.q > cv.fp_ctx.p_int:
+            q_above_p_lane(cv, cw, fx, label)
+        first = "hash" if hname in ecdsa.FUSED_HASHES else "digest"
+        rep, _ = time_batch(
+            lambda: ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs, hname),
+            f"{label} ECDSA verify", [first, "scalars", "key on curve",
+                                      "comb", "table", "windowed", "accept",
+                                      "return"],
+            lambda acc_: bool(acc_.all()))
+        rep.update(hash=hname, comb_first_build_s=round(comb_s, 3),
+                   comb_bytes=comb_.numel() * comb_.element_size())
+        r_report[cname] = rep
+        note_sources(cv)
+        # a kernel that already has a row (kernel 1 at a K timed before)
+        # carries this path's launches in it
+        timed = {row["name"] for row in lines}
+        kern = {name: args for name, args in w_kern(cv, PA_, PB_, wtab).items()
+                if name not in timed}
+        time_kernels(kern, path, rep["launches_per_batch"],
+                     f"{label} ECDSA verify")
+        note_launches(timed, path, f"{label} ECDSA verify")
+
+    # the curves that share an instance: the valid, corrupted and off-curve
+    # batches at SHARED_BATCH, each launching its instance's kernels 1-4
+    shared = {}
+    for cname, label in R_SHARED.items():
+        cv = hosts[cname][0]
+        fx = fixtures[cname]
+        reset()
+        for kb_, ms, ss, want in (
+                (fx.kb, fx.msgs, fx.sigs, np.ones(SHARED_BATCH, bool)),
+                (fx.kb, fx.bad_m, fx.bad_s, fx.want_bad),
+                (fx.kb_off, fx.msgs, fx.sigs, fx.want_off)):
+            got = ecdsa.verify_batch_async(kb_, ms, ss).cpu().numpy()
+            _check((got == want).all(), f"{label}: wrong accept mask "
+                   f"({np.flatnonzero(got != want)[:20].tolist()})")
+        path = snapshot()
+        for name in w_names(cv).values():
+            _check(path[name] >= 1,
+                   f"kernel {name} was not launched on the {label} path")
+        shared[cname] = {name: path[name] for name in w_names(cv).values()}
+        print(f"{label} (batch {SHARED_BATCH}): valid lanes accept, the "
+              "corrupted lanes and off-curve keys reject; launches "
+              + json.dumps(shared[cname]))
+
+    lap("the registry ECDSA paths")
+
+    # ECFSDSA batch verification on each new kernel-6 instance: P-521
+    # (SHA-512), P-224 (SHA-224), BrainpoolP384r1 (SHA-384) and
+    # BrainpoolP512t1 (SHA-512) at batch 8192, measured as the batch paths
+    # above; the other instances at FSDSA_SMALL. Each batch accepts and
+    # rejects with one flipped bit of s or one changed message; kernel 6 is
+    # checked on straus_check's special lanes against the host oracle, then
+    # timed and held against its plain version on the batch's own tables
+    # with those lanes written in.
+    f_curves = {"SECP521R1": (*w_curves["SECP521R1"][:2],
+                              *w_curves["SECP521R1"][4:]), **r_curves}
+    f_report = {}
+    for cname, (label, hname) in F_CURVES.items():
+        cv, cw, P1, P2 = f_curves[cname]
+        n = BATCH if cname in FSDSA_FULL else FSDSA_SMALL
+        P1, P2 = [PrjPoint(*[t[:, :n].contiguous() for t in P_])
+                  for P_ in (P1, P2)]
+        straus_in[label] = (cv, P1, P2, PrjPoint, *straus_check(
+            cv, cw, P1, P2, PrjPoint, label, False))
+        kb_, msgs_, sigs_ = f_fix[cname]
+        fn = batch_call(bv.ecfsdsa_verify_batch, kb_, hname)
+        reset()
+        _check(fn(msgs_, sigs_) is True, f"ECFSDSA {label}: the valid "
+                                         "batch rejects")
+        _check(fn(msgs_, swap(sigs_, n // 2 + 1, flip_last)) is False,
+               f"ECFSDSA {label}: one flipped bit of s accepts")
+        _check(fn(evil(msgs_, n // 3), sigs_) is False,
+               f"ECFSDSA {label}: one changed message accepts")
+        path = snapshot()
+        sname = megamul.kernel_name_of(cv, 2)
+        for name in (sname, w_names(cv)["point_add"],
+                     w_names(cv)["point_dbl"]):
+            _check(path[name] >= 1, f"kernel {name} was not launched on "
+                                    f"the ECFSDSA {label} path")
+        print(f"ECFSDSA {label} ({hname}, batch {n}): the valid batch "
+              "accepts; one flipped bit of s or one changed message "
+              "rejects; launches " + json.dumps(
+                  {k_: v for k_, v in path.items() if v}))
+        fmarks = ["parse", "lift", "table", "straus", "reduce", "comb",
+                  "accept", "return"]
+        if n == BATCH:
+            f_report[cname], marked = time_batch(
+                lambda: fn(msgs_, sigs_), f"ecfsdsa {label} batch verify",
+                fmarks, lambda ok_: ok_ is True)
+            per = f_report[cname]["launches_per_batch"]
+        else:
+            reset()
+            bd, marked, ok_ = staged(lambda: fn(msgs_, sigs_), 1)
+            per = snapshot()
+            _check(ok_ is True and list(bd) == fmarks,
+                   f"ECFSDSA {label}: the staged batch {list(bd)}, {ok_}")
+            print(f"ecfsdsa {label} batch {n} stage ms:", json.dumps(bd))
+        note_sources(cv)
+        time_kernels({sname: straus_row(label, marked["table"],
+                                        W_PER_WINDOW[a_tag(cv)][1])},
+                     path, per, f"ECFSDSA {label} batch verification", n)
+        note_launches(set(w_names(cv).values()), path,
+                      f"ECFSDSA {label} batch verification")
+
+    lap("the registry ECFSDSA paths")
+    for row in lines:
+        if re.search(r"_k1[467](_|$)", row["name"]):
+            # the large-K body backend these instances stand for
+            row["also_replaces"] = "libecc_tpu/ops/pallas/rows.py:129"
 
     def rated(rep, key):
         rep = dict(rep)
@@ -1687,6 +1964,13 @@ def main() -> int:
     print(json.dumps({"verify_wide": {
         name: rated(rep, "verifies_per_s")
         for name, rep in w_report.items() if name != "SECP256R1"}}))
+    print(json.dumps({"verify_registry": {
+        **{name: rated(rep, "verifies_per_s")
+           for name, rep in r_report.items()},
+        "shared_instance_launches": shared}}))
+    print(json.dumps({"batch_verify_registry": {
+        name: rated(rep, "signatures_per_s")
+        for name, rep in f_report.items()}}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

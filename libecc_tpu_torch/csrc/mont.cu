@@ -1,7 +1,10 @@
-// Kernel 1: batched Montgomery multiply and square, built for K = 8
-// (256-bit moduli), K = 12 (384-bit: P-384), K = 14 (448-bit: Ed448's p
-// and q), K = 16 (512-bit: BrainpoolP512r1/t1, GOST512 and the other
-// 512-bit curves) and K = 17 (521-bit: P-521's p = 2^521 - 1 and q).
+// Kernel 1: batched Montgomery multiply and square, built for K = 6
+// (192-bit moduli: P-192, the 192-bit Brainpool, SM2 and Koblitz curves),
+// K = 7 (224-bit: P-224, BrainpoolP224r1/t1, secp224k1's p), K = 8
+// (256-bit moduli), K = 10 (320-bit: BrainpoolP320r1/t1), K = 12 (384-bit:
+// P-384, BrainpoolP384r1/t1), K = 14 (448-bit: Ed448's p and q), K = 16
+// (512-bit: BrainpoolP512r1/t1, GOST512 and the other 512-bit curves) and
+// K = 17 (521-bit: P-521's p = 2^521 - 1 and q).
 //
 // Replaces the TPU kernel libecc_tpu/ops/pallas/mont.py:_build -> call
 // (pallas_call at :297; public mont_mul_relaxed :323, mont_sqr_relaxed
@@ -12,10 +15,11 @@
 // instance, and the K = 17 one (P-521 is K = 37 there): on Hopper a 448-,
 // 512- or 521-bit product is the same template at K = 14, 16 or 17, not a
 // code path of its own. P-384 (K = 28 in JAX) runs the tile backend
-// there; here it is the template at K = 12. K = 17 is the one odd limb
-// count: nothing here pairs limbs, the squaring's cross terms run over
-// i < j whatever K is, and P-521's p' = -p^-1 mod 2^32 is 1 (p is
-// 2^521 - 1), R = 2^544.
+// there; here it is the template at K = 12. K = 7 and K = 17 are the odd
+// limb counts: nothing here pairs limbs, the squaring's cross terms run
+// over i < j whatever K is, and P-521's p' = -p^-1 mod 2^32 is 1 (p is
+// 2^521 - 1), R = 2^544. secp224k1's q has 225 bits: its scalars run the
+// K = 8 instance beside the K = 7 one of its p.
 //
 // Bound on the H100: integer-multiply issue and memory are close. One
 // product is 2K^2 + K 32-bit multiplies (K^2 + K(K+1)/2 + K for the
@@ -81,9 +85,10 @@ int launch_sqr(const FieldCtx<K>* f, const uint32_t* a, uint32_t* out,
 
 }  // namespace ecc
 
-// One pair of entry points per limb count: K = 8 (256-bit moduli), K = 12
-// (384-bit), K = 14 (448-bit, Ed448's p and q), K = 16 (512-bit) and
-// K = 17 (521-bit, P-521).
+// One pair of entry points per limb count: K = 6 (192-bit moduli), K = 7
+// (224-bit), K = 8 (256-bit), K = 10 (320-bit), K = 12 (384-bit), K = 14
+// (448-bit, Ed448's p and q), K = 16 (512-bit) and K = 17 (521-bit,
+// P-521).
 extern "C" {
 
 #define ECC_MONT_ENTRY_POINTS(K)                                           \
@@ -97,7 +102,10 @@ extern "C" {
     return ecc::launch_sqr<K>(f, a, out, n, stream);                       \
   }
 
+ECC_MONT_ENTRY_POINTS(6)
+ECC_MONT_ENTRY_POINTS(7)
 ECC_MONT_ENTRY_POINTS(8)
+ECC_MONT_ENTRY_POINTS(10)
 ECC_MONT_ENTRY_POINTS(12)
 ECC_MONT_ENTRY_POINTS(14)
 ECC_MONT_ENTRY_POINTS(16)

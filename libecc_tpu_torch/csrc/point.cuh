@@ -235,7 +235,10 @@ __device__ __forceinline__ void store_pt(uint32_t* x, uint32_t* y,
 
 // Kernels 2 and 3 as templates over K and the formula set AK: one thread
 // per lane, the whole formula in registers. point.cu builds them at K = 8
-// for every a, point_wide.cu at K = 12 (a = -3) and K = 16 (generic a).
+// for every a, point_wide.cu at K = 12 (a = -3) and K = 16 (generic a),
+// point_p521.cu at K = 17 (a = -3), point_small.cu at K = 6 and 7 (every
+// a) and K = 10 (a = -3, generic a), point_wide_alt.cu at K = 12 (generic
+// a) and K = 16 (a = -3).
 template <int K, int AK>
 __global__ void __launch_bounds__(256)
 point_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
@@ -314,3 +317,22 @@ int launch_dbl(const CurveCtx<K>* C, const uint32_t* const* in,
 }
 
 }  // namespace ecc
+
+// The C entry points of kernels 2 and 3 for one (K, formula set AK),
+// named point_add_k<K>_<TAG> and point_dbl_k<K>_<TAG> (TAG: m3, ga or a0
+// for a = -3, generic a, a = 0). in: x1, y1, z1[, x2, y2, z2]; out: x3,
+// y3, z3 (each uint32[K][n]). A context of another a_kind returns
+// cudaErrorInvalidValue and launches nothing.
+#define ECC_POINT_ENTRY_POINTS(K, AK, TAG)                                 \
+  int point_add_k##K##_##TAG(const ecc::CurveCtx<K>* C,                    \
+                             const uint32_t* const* in,                    \
+                             uint32_t* const* out, long long n,            \
+                             void* stream) {                               \
+    return ecc::launch_add<K, AK>(C, in, out, n, stream);                  \
+  }                                                                        \
+  int point_dbl_k##K##_##TAG(const ecc::CurveCtx<K>* C,                    \
+                             const uint32_t* const* in,                    \
+                             uint32_t* const* out, long long n,            \
+                             void* stream) {                               \
+    return ecc::launch_dbl<K, AK>(C, in, out, n, stream);                  \
+  }

@@ -5,8 +5,12 @@
 // the Edwards loop at K = 14 (a = 1, one pair); windowed_wide.cu kernel 4
 // at K = 12 (a = -3) and K = 16 (generic a); windowed_p521.cu kernel 4 at
 // K = 17 (a = -3); straus_wide.cu kernel 6 at K = 12 and 16; straus_ed448.cu
-// kernel 6-ed at K = 14 (a = 1). Each file is one nvcc process of the
-// parallel build. The design notes are in windowed.cu.
+// kernel 6-ed at K = 14 (a = 1); windowed_small.cu and straus_small.cu
+// kernels 4 and 6 at K = 6 and 7 (every a) and K = 10 (a = -3, generic
+// a); windowed_wide_alt.cu and straus_wide_alt.cu kernels 4 and 6 at
+// K = 12 (generic a) and K = 16 (a = -3); straus_p521.cu kernel 6 at
+// K = 17 (a = -3). Each file is one nvcc process of the parallel build.
+// The design notes are in windowed.cu.
 #pragma once
 
 #include "edpoint.cuh"
@@ -136,3 +140,16 @@ int launch_ed(const EdCurveCtx<K>* C, const int32_t* const* digits,
 }
 
 }  // namespace ecc
+
+// The C entry point NAME of kernel 4 (NPAIRS = 1) or 6 (NPAIRS = 2) for one
+// (K, formula set AK). digits: NPAIRS pointers to int32[nwin][n] (MSW
+// first); tables: NPAIRS pointers to uint32[16][3][K][n] (for kernel 6,
+// P's then Q's); out: x, y, z (each uint32[K][n]). A context of another
+// a_kind returns cudaErrorInvalidValue and launches nothing.
+#define ECC_W_ENTRY_POINT(NAME, K, NPAIRS, AK)                             \
+  int NAME(const ecc::CurveCtx<K>* C, const int32_t* const* digits,       \
+           int nwin, const uint32_t* const* tables, uint32_t* const* out,  \
+           long long n, void* stream) {                                    \
+    return ecc::launch_w<K, NPAIRS, AK>(C, digits, nwin, tables, out, n,   \
+                                        stream);                           \
+  }

@@ -115,8 +115,8 @@ def library(name: str) -> ctypes.CDLL:
 
 def kernel_name(base: str, k: int) -> str:
     """A kernel's name in the launch counts and reports: the K = 8 instance
-    keeps the base name, a wider one carries its limb count ("mont_mul",
-    "mont_mul_k14")."""
+    keeps the base name, any other carries its limb count ("mont_mul",
+    "mont_mul_k6", "mont_mul_k14")."""
     return base if k == 8 else f"{base}_k{k}"
 
 

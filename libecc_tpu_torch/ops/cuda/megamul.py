@@ -1,7 +1,8 @@
 """Kernels 4, 6, 7 and 6-ed: the whole fixed-window scalar multiply and the
-whole Straus dual multiply (``csrc/windowed.cu``; the wide instances in
-``csrc/windowed_wide.cu``, ``windowed_p521.cu``, ``straus_wide.cu`` and
-``straus_ed448.cu``).
+whole Straus dual multiply (``csrc/windowed.cu``; the other instances in
+``csrc/windowed_wide.cu``, ``windowed_wide_alt.cu``, ``windowed_small.cu``,
+``windowed_p521.cu``, ``straus_wide.cu``, ``straus_wide_alt.cu``,
+``straus_small.cu``, ``straus_p521.cu`` and ``straus_ed448.cu``).
 
 Counterpart of ``libecc_tpu/ops/pallas/megamul.py``: ``windowed_mul``
 (npairs 1) and ``straus_mul`` (npairs 2), each in two models. The model
@@ -21,11 +22,12 @@ The kernels read the entry by index, so they serve PUBLIC scalars only
 (see the note in the CUDA source). The TPU kernel's VMEM sizing and its
 w -> w-1 fallback have no counterpart: the kernels are built at w = 4 for
 K = 8 (all four; every a, Edwards a = -1), for kernels 7 and 6-ed at
-K = 14 (Edwards a = 1, Ed448), for kernels 4 and 6 at K = 12 (a = -3,
-P-384) and K = 16 (generic a: the 512-bit curves), and for kernel 4 at
-K = 17 (a = -3, P-521). The K = 14, 16 and 17 instances are the
-counterpart of the TPU's large-K ``rows.py:RowOps`` backend. The
-wrappers raise on any other shape or a for a tensor on the card.
+K = 14 (Edwards a = 1, Ed448), and for kernels 4 and 6 at K = 6 and 7
+(every a), K = 10 and 12 (a = -3 and generic a), K = 16 (a = -3 and
+generic a: the 512-bit curves) and K = 17 (a = -3, P-521). The K = 14,
+16 and 17 instances are the counterpart of the TPU's large-K
+``rows.py:RowOps`` backend. The wrappers raise on any other shape or a
+for a tensor on the card.
 """
 
 from __future__ import annotations
@@ -37,43 +39,55 @@ import torch
 from . import build, edpoint
 from .build import kernel_name
 from .mont import _stream
-from .point import (A_GENERIC, A_M3, A_NAMES, PlainField, _add_body,
-                    a_kind, curve_ctx_type, curve_struct, dbln_jac_body,
-                    ptr_array)
+from .point import (A_GENERIC, A_M3, A_NAMES, A_TAGS, PlainField,
+                    _add_body, a_kind, curve_ctx_type, curve_struct,
+                    dbln_jac_body, ptr_array)
 
 WINDOW = 4
 
-# The built instances: (K, model, number of pairs) -> kernel name, C entry
-# point, the a_kind the formulas are built for (None: every a, one formula
-# set per a chosen at launch) and the library (csrc/<stem>.cu). Model "w"
-# is short Weierstrass (three coordinates, point.A_* kinds), "ed" twisted
-# Edwards (four, edpoint.A_* kinds). The wide instances other than kernel
-# 7 at K = 14 (K = 12 for P-384, K = 16 for the 512-bit curves, K = 17 for
-# P-521, the Straus kernels at K = 12, 14 and 16) are named by their C
-# entry points. The support check, the ctypes typing and the launch counts
-# derive from this table.
+# The built instances: (K, model, number of pairs, a_kind) -> kernel name,
+# C entry point and library (csrc/<stem>.cu). a_kind None: every a, one
+# formula set per a chosen at launch (K = 8). Model "w" is short
+# Weierstrass (three coordinates, point.A_* kinds), "ed" twisted Edwards
+# (four, edpoint.A_* kinds). The instances other than K = 8 and kernel 7
+# at K = 14 are named by their C entry points; those of a K built for
+# more than one a carry the a's tag (point.A_TAGS: "straus_mul_k6_m3_w4").
+# The support check, the ctypes typing and the launch counts derive from
+# this table.
 A_M1, A_1 = edpoint.A_M1, edpoint.A_1
 _KERNELS = {
-    (8, "w", 1): ("windowed_mul", "windowed_mul_k8_w4", None, "windowed"),
-    (8, "ed", 1): ("windowed_mul_ed", "windowed_mul_ed_k8_w4", A_M1,
-                   "windowed"),
-    (8, "w", 2): ("straus_mul", "straus_mul_k8_w4", None, "windowed"),
-    (8, "ed", 2): ("straus_mul_ed", "straus_mul_ed_k8_w4", A_M1,
-                   "windowed"),
-    (14, "ed", 1): (kernel_name("windowed_mul_ed", 14),
-                    "windowed_mul_ed_k14_w4", A_1, "windowed"),
-    (12, "w", 1): ("windowed_mul_k12_w4", "windowed_mul_k12_w4", A_M3,
-                   "windowed_wide"),
-    (16, "w", 1): ("windowed_mul_k16_w4", "windowed_mul_k16_w4", A_GENERIC,
-                   "windowed_wide"),
-    (17, "w", 1): ("windowed_mul_k17_w4", "windowed_mul_k17_w4", A_M3,
-                   "windowed_p521"),
-    (12, "w", 2): ("straus_mul_k12_w4", "straus_mul_k12_w4", A_M3,
-                   "straus_wide"),
-    (16, "w", 2): ("straus_mul_k16_w4", "straus_mul_k16_w4", A_GENERIC,
-                   "straus_wide"),
-    (14, "ed", 2): ("straus_mul_ed_k14_w4", "straus_mul_ed_k14_w4", A_1,
-                    "straus_ed448")}
+    (8, "w", 1, None): ("windowed_mul", "windowed_mul_k8_w4", "windowed"),
+    (8, "ed", 1, A_M1): ("windowed_mul_ed", "windowed_mul_ed_k8_w4",
+                         "windowed"),
+    (8, "w", 2, None): ("straus_mul", "straus_mul_k8_w4", "windowed"),
+    (8, "ed", 2, A_M1): ("straus_mul_ed", "straus_mul_ed_k8_w4",
+                         "windowed"),
+    (14, "ed", 1, A_1): (kernel_name("windowed_mul_ed", 14),
+                         "windowed_mul_ed_k14_w4", "windowed"),
+    (12, "w", 1, A_M3): ("windowed_mul_k12_w4", "windowed_mul_k12_w4",
+                         "windowed_wide"),
+    (16, "w", 1, A_GENERIC): ("windowed_mul_k16_w4", "windowed_mul_k16_w4",
+                              "windowed_wide"),
+    (17, "w", 1, A_M3): ("windowed_mul_k17_w4", "windowed_mul_k17_w4",
+                         "windowed_p521"),
+    (12, "w", 2, A_M3): ("straus_mul_k12_w4", "straus_mul_k12_w4",
+                         "straus_wide"),
+    (16, "w", 2, A_GENERIC): ("straus_mul_k16_w4", "straus_mul_k16_w4",
+                              "straus_wide"),
+    (17, "w", 2, A_M3): ("straus_mul_k17_w4", "straus_mul_k17_w4",
+                         "straus_p521"),
+    (14, "ed", 2, A_1): ("straus_mul_ed_k14_w4", "straus_mul_ed_k14_w4",
+                         "straus_ed448")}
+# kernels 4 and 6 at K = 6, 7 (every a) and 10 (a = -3, generic a), and at
+# K = 12 (generic a) and 16 (a = -3)
+for _k, _kinds, _sfx in ((6, A_TAGS, "small"), (7, A_TAGS, "small"),
+                         (10, (A_M3, A_GENERIC), "small"),
+                         (12, (A_GENERIC,), "wide_alt"),
+                         (16, (A_M3,), "wide_alt")):
+    for _a in _kinds:
+        for _np, _base in ((1, "windowed"), (2, "straus")):
+            _name = f"{_base}_mul_k{_k}_{A_TAGS[_a]}_w4"
+            _KERNELS[(_k, "w", _np, _a)] = (_name, _name, f"{_base}_{_sfx}")
 
 launches = {inst[0]: 0 for inst in _KERNELS.values()}
 
@@ -88,19 +102,36 @@ def _a_name(kind, model: str) -> str:
     return f"a = {edpoint.a_name(kind)}" if model == "ed" else A_NAMES[kind]
 
 
+def instance(curve, model: str, npairs: int):
+    """The built instance (kernel name, C entry point, library stem) of
+    the model and number of pairs for the curve's K and a, or None."""
+    k = curve.fp_ctx.k
+    return (_KERNELS.get((k, model, npairs, _a_kind(curve, model)))
+            or _KERNELS.get((k, model, npairs, None)))
+
+
+def kernel_name_of(curve, npairs: int, model: str = "w") -> str:
+    """The name under which the curve's kernel 4 (npairs 1) or 6 (npairs
+    2) counts its launches (7 and 6-ed with model "ed"); KeyError where it
+    is not built."""
+    inst = instance(curve, model, npairs)
+    if inst is None:
+        raise KeyError(f"no {model} kernel with {npairs} pair(s) is built "
+                       f"for {curve.name}")
+    return inst[0]
+
+
 def supported(curve, w: int, model: str, npairs: int) -> bool:
     """Whether a kernel is built for this curve's K and a, the model, the
     number of pairs and the window width."""
-    inst = _KERNELS.get((curve.fp_ctx.k, model, npairs))
-    return (inst is not None and w == WINDOW
-            and inst[2] in (None, _a_kind(curve, model)))
+    return w == WINDOW and instance(curve, model, npairs) is not None
 
 
 def _lib(stem: str):
     lib = build.library(stem)
     if not getattr(lib, "_typed", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        for (k, model, _), (_, cname, _, lib_stem) in _KERNELS.items():
+        for (k, model, _, _), (_, cname, lib_stem) in _KERNELS.items():
             if lib_stem != stem:
                 continue
             ctx = (edpoint.ed_curve_ctx_type(k) if model == "ed"
@@ -169,14 +200,13 @@ def _launch(curve, tables, digits, point_cls):
     if not supported(curve, w, model, npairs):
         built = ", ".join(
             f"(K = {k_}, {_a_name(a, model)})"
-            for (k_, m, n_), (_, _, a, _) in _KERNELS.items()
-            if (m, n_) == (model, npairs))
+            for (k_, m, n_, a) in _KERNELS if (m, n_) == (model, npairs))
         raise ValueError(f"megamul ({model}, {npairs} pair(s)): the CUDA "
                          f"kernel is built for {built} and w = {WINDOW}, "
                          f"not {curve.name} (K = {k}, "
                          f"{_a_name(_a_kind(curve, model), model)}), "
                          f"w = {w}")
-    name, cname, _, stem = _KERNELS[(k, model, npairs)]
+    name, cname, stem = instance(curve, model, npairs)
     n = tables[0].shape[-1]
     ncoord = len(point_cls._fields)
     nwin = digits[0].shape[0]

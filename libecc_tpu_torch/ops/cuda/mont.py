@@ -1,9 +1,10 @@
 """Kernel 1: batched Montgomery multiply and square (``csrc/mont.cu``).
 
-Counterpart of ``libecc_tpu/ops/pallas/mont.py``, built for K = 8 (256-bit
-moduli), K = 12 (384-bit: P-384), K = 14 (448-bit: Ed448), K = 16
-(512-bit: BrainpoolP512r1, GOST512) and K = 17 (521-bit: P-521; with
-kernels 8a, 8b and 7 at K = 14 and kernels 2-4 at K = 16 and 17 the
+Counterpart of ``libecc_tpu/ops/pallas/mont.py``, built for K = 6 (192-bit
+moduli), K = 7 (224-bit), K = 8 (256-bit), K = 10 (320-bit), K = 12
+(384-bit: P-384, the 384-bit Brainpool curves), K = 14 (448-bit: Ed448),
+K = 16 (512-bit: the 512-bit curves) and K = 17 (521-bit: P-521; with
+kernels 8a, 8b and 7 at K = 14 and kernels 2-4 and 6 at K = 16 and 17 the
 counterpart of the TPU's large-K ``rows.py:RowOps`` backend). The
 wrappers launch the CUDA kernel for tensors on the card and take the plain
 version (``nn.core.mont_mul`` / ``mont_sqr``) only for tensors on the CPU.
@@ -21,10 +22,10 @@ from ...nn import core as nn
 from . import build
 from .build import kernel_name
 
-SUPPORTED_K = (8, 12, 14, 16, 17)
+SUPPORTED_K = (6, 7, 8, 10, 12, 14, 16, 17)
 
 # launches of each kernel (incremented only where the kernel is launched);
-# the wider instances count under their own names ("mont_mul_k12")
+# the other instances count under their own names ("mont_mul_k12")
 launches = {name: 0 for k in SUPPORTED_K
             for name in (kernel_name("mont_mul", k),
                          kernel_name("mont_sqr", k))}

@@ -1,7 +1,9 @@
 """Kernels 2, 3 and 5: complete point addition, doubling and the fused
-2^n*P + T step (``csrc/point.cu``; the K = 12 and K = 16 instances of 2
-and 3 in ``csrc/point_wide.cu``, the K = 17 ones in
-``csrc/point_p521.cu``).
+2^n*P + T step (``csrc/point.cu``; the K = 12 (a = -3) and K = 16 (generic
+a) instances of 2 and 3 in ``csrc/point_wide.cu``, the K = 17 ones in
+``csrc/point_p521.cu``, the K = 6, 7 and 10 ones in
+``csrc/point_small.cu``, K = 12 (generic a) and K = 16 (a = -3) in
+``csrc/point_wide_alt.cu``).
 
 Counterparts of ``libecc_tpu/ops/pallas/point.py:point_add`` /
 ``point_dbl`` / ``point_dbln_add``. The plain versions below evaluate the
@@ -28,22 +30,54 @@ from .mont import (check_operand, field_ctx_type, field_struct,
 
 A_GENERIC, A_M3, A_ZERO = 0, 1, 2
 A_NAMES = {A_GENERIC: "generic a", A_M3: "a = -3", A_ZERO: "a = 0"}
+# the tag of a (K, a) instance's names where its K is built for more than
+# one a under separate entry points ("point_add_k6_m3")
+A_TAGS = {A_GENERIC: "ga", A_M3: "m3", A_ZERO: "a0"}
 BASES = ("point_add", "point_dbl", "point_dbln_add")
-# The built instances of kernels 2, 3 and 5: (K, a_kind) -> the library
-# (csrc/<stem>.cu) and the kernels built there. K = 8 takes every a (one
-# formula set per a, chosen at launch); K = 12 (P-384), K = 16 (the
-# 512-bit curves) and K = 17 (P-521) are built for one a each, and kernel
-# 5 at K = 8 only.
-# The support check, the ctypes typing and the launch counts derive from
-# this table.
 _WIDE = ("point_add", "point_dbl")
-BUILT = {(8, A_GENERIC): ("point", BASES), (8, A_M3): ("point", BASES),
-         (8, A_ZERO): ("point", BASES), (12, A_M3): ("point_wide", _WIDE),
-         (16, A_GENERIC): ("point_wide", _WIDE),
-         (17, A_M3): ("point_p521", _WIDE)}
+# The built instances of kernels 2, 3 and 5: (K, a_kind) -> the library
+# (csrc/<stem>.cu), the kernels built there and the instance's tag. K = 8
+# takes every a in one entry point a kernel (one formula set per a, chosen
+# at launch), and so does each of the first-built wider instances (K = 12,
+# a = -3; K = 16, generic a; K = 17, a = -3): their entry points are
+# <base>_k<K> and they count under build.kernel_name(base, K). The later
+# ones (K = 6 and 7 for every a, K = 10 for a = -3 and generic a, K = 12
+# for generic a, K = 16 for a = -3) have one entry point per (K, a),
+# <base>_k<K>_<tag>, counted under that name. Kernel 5 is built at K = 8
+# only. The support check, the ctypes typing and the launch counts derive
+# from this table.
+BUILT = {(8, A_GENERIC): ("point", BASES, ""), (8, A_M3): ("point", BASES, ""),
+         (8, A_ZERO): ("point", BASES, ""),
+         (12, A_M3): ("point_wide", _WIDE, ""),
+         (16, A_GENERIC): ("point_wide", _WIDE, ""),
+         (17, A_M3): ("point_p521", _WIDE, ""),
+         **{(k, a): ("point_small", _WIDE, A_TAGS[a])
+            for k, kinds in ((6, A_TAGS), (7, A_TAGS),
+                             (10, (A_M3, A_GENERIC)))
+            for a in kinds},
+         (12, A_GENERIC): ("point_wide_alt", _WIDE, "ga"),
+         (16, A_M3): ("point_wide_alt", _WIDE, "m3")}
 
-launches = {kernel_name(base, k): 0
-            for (k, _), (_, bases) in BUILT.items() for base in bases}
+
+def _entry(base: str, k: int, tag: str) -> str:
+    """The C entry point of an instance."""
+    return f"{base}_k{k}_{tag}" if tag else f"{base}_k{k}"
+
+
+def _count_name(base: str, k: int, tag: str) -> str:
+    return f"{kernel_name(base, k)}_{tag}" if tag else kernel_name(base, k)
+
+
+def instance_name(base: str, curve) -> str | None:
+    """The name under which the kernel ``base`` built for the curve's
+    (K, a) counts its launches, or None where it is not built."""
+    stem, bases, tag = BUILT.get((curve.fp_ctx.k, a_kind(curve)),
+                                 (None, (), ""))
+    return _count_name(base, curve.fp_ctx.k, tag) if base in bases else None
+
+
+launches = {_count_name(base, k, tag): 0
+            for (k, _), (_, bases, tag) in BUILT.items() for base in bases}
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,13 +114,13 @@ def _lib(stem: str):
     lib = build.library(stem)
     if not getattr(lib, "_typed", False):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        for (k, _), (lib_stem, bases) in BUILT.items():
+        for (k, _), (lib_stem, bases, tag) in BUILT.items():
             if lib_stem != stem:
                 continue
             cctx = ctypes.POINTER(curve_ctx_type(k))
             for base in bases:
                 ndbl = [ctypes.c_int] if base == "point_dbln_add" else []
-                fn = getattr(lib, f"{base}_k{k}")
+                fn = getattr(lib, _entry(base, k, tag))
                 fn.argtypes = [cctx, vp, vp, ll, *ndbl, vp]
                 fn.restype = ctypes.c_int
         lib._typed = True
@@ -299,18 +333,19 @@ def _launch(base, curve, ins, *extra):
     """Launch point_add / point_dbl / point_dbln_add on the card: the three
     output coordinates."""
     k, kind = curve.fp_ctx.k, a_kind(curve)
-    stem, bases = BUILT.get((k, kind), (None, ()))
+    stem, bases, tag = BUILT.get((k, kind), (None, (), ""))
     if base not in bases:
         built = ", ".join(f"(K = {k_}, {A_NAMES[a]})"
-                          for (k_, a), (_, bs) in BUILT.items() if base in bs)
+                          for (k_, a), (_, bs, _) in BUILT.items()
+                          if base in bs)
         raise ValueError(f"{base}: the CUDA kernel is built for {built}, "
                          f"not {curve.name} (K = {k}, {A_NAMES[kind]})")
     _check_point(curve, ins, f"{base} operands")
     out = [torch.empty_like(ins[0]) for _ in range(3)]
-    rc = getattr(_lib(stem), f"{base}_k{k}")(
+    rc = getattr(_lib(stem), _entry(base, k, tag))(
         ctypes.byref(curve_struct(curve)), ptr_array(ins), ptr_array(out),
         ins[0].shape[1], *extra, _stream())
-    name = kernel_name(base, k)
+    name = _count_name(base, k, tag)
     build.check(rc, name)
     launches[name] += 1
     return out

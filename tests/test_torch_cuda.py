@@ -76,12 +76,20 @@ def _point_pairs(c, rng, n, dev):
 
 
 # Kernels 1-4 at K = 8 (every a), K = 12 (P-384, a = -3), K = 16 (the
-# 512-bit curves, generic a) and K = 17 (P-521, a = -3): K and the scalar
-# bits come from the curve.
+# 512-bit curves, generic a) and K = 17 (P-521, a = -3), and the later
+# instances: K = 6 and 7 for every a, K = 10 for a = -3 and generic a,
+# K = 12 for generic a and K = 16 for a = -3. K and the scalar bits come
+# from the curve (secp224k1: K = 7 coordinates, a 225-bit q at K = 8).
+# One curve for each (K, a) instance:
+NEW_W_CURVES = ["P-192", "BRAINPOOLP192R1", "SECP192K1", "P-224",
+                "BRAINPOOLP224R1", "SECP224K1", "BRAINPOOLP320T1",
+                "BRAINPOOLP320R1", "BRAINPOOLP384R1", "BRAINPOOLP512T1"]
+
 
 @pytest.mark.parametrize("which", ["p", "q"])
 @pytest.mark.parametrize("name", ["P-256", "P-384", "BRAINPOOLP512R1",
-                                  "GOST512", "P-521"])
+                                  "GOST512", "P-521", "P-192", "P-224",
+                                  "SECP224K1", "BRAINPOOLP320R1"])
 def test_mont_kernels_match_plain(dev, name, which):
     c = params.get_curve(name)
     ctx = c.fp_ctx if which == "p" else c.q_ctx
@@ -103,10 +111,9 @@ def test_mont_kernels_match_plain(dev, name, which):
 
 @pytest.mark.parametrize("name", ["P-256", "SECP256K1", "BRAINPOOLP256R1",
                                   "P-384", "BRAINPOOLP512R1", "GOST512",
-                                  "P-521"])
+                                  "P-521", *NEW_W_CURVES])
 def test_point_kernels_match_plain(dev, name):
     c = params.get_curve(name)
-    k = c.fp_ctx.k
     rng = np.random.RandomState(72)
     A, B = _point_pairs(c, rng, 777, dev)
     before = dict(point.launches)
@@ -117,15 +124,16 @@ def test_point_kernels_match_plain(dev, name):
     want = point.point_dbl_plain(c, A)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     for base in ("point_add", "point_dbl"):
-        assert point.launches[kernel_name(base, k)] == before[
-            kernel_name(base, k)] + 1
+        name_k = point.instance_name(base, c)
+        assert point.launches[name_k] == before[name_k] + 1
     assert sum(point.launches.values()) == sum(before.values()) + 2
 
 
 @pytest.mark.parametrize("name", ["P-256", "SECP256K1", "P-384",
-                                  "BRAINPOOLP512R1", "GOST512", "P-521"])
+                                  "BRAINPOOLP512R1", "GOST512", "P-521",
+                                  *NEW_W_CURVES])
 def test_windowed_kernel_matches_plain(dev, name):
-    """Kernel 4 (64, 96, 128 or 131 windows): the identity point (lanes 1 and
+    """Kernel 4 (48 to 131 windows): the identity point (lanes 1 and
     2), scalars whose last add is T + O, -T + T and T + T
     (hostref.window_edge_scalars), short ones and random ones; the first
     lanes also against the host oracle."""
@@ -139,7 +147,7 @@ def test_windowed_kernel_matches_plain(dev, name):
     table = scalar_mul._build_mul_table(c, P)
     digs = scalar_mul._window_digits(mt, c.scalar_bits())
     assert digs.shape[0] == -(-c.scalar_bits() // 4)
-    name_k = megamul._KERNELS[(c.fp_ctx.k, "w", 1)][0]
+    name_k = megamul.kernel_name_of(c, 1)
     before = megamul.launches[name_k]
     got = megamul.windowed_mul(c, table, digs, PrjPoint)
     want = megamul.windowed_mul_plain(c, table, digs, PrjPoint)
@@ -157,10 +165,10 @@ def test_windowed_kernel_matches_plain(dev, name):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    c = params.get_curve("P-224")                      # K = 7
-    a = c.fp_ctx.from_ints([1, 2], dev)
+    ctx = FpCtx((1 << 283) - 1)                        # K = 9: not built
+    a = ctx.from_ints([1, 2], dev)
     with pytest.raises(ValueError):
-        mont.mont_mul(a, a, c.fp_ctx)
+        mont.mont_mul(a, a, ctx)
     c = params.get_curve("P-256")
     a = c.fp_ctx.from_ints([1, 2, 3], dev)
     with pytest.raises(ValueError):
@@ -302,11 +310,14 @@ def test_dbln_add_kernel_matches_plain(dev, name):
 
 
 @pytest.mark.parametrize("name", ["P-256", "SECP256K1", "ED25519", "P-384",
-                                  "BRAINPOOLP512R1", "GOST512", "ED448"])
+                                  "BRAINPOOLP512R1", "GOST512", "ED448",
+                                  *NEW_W_CURVES, "P-521"])
 def test_straus_kernels_match_plain(dev, name):
     """Kernel 6 at K = 8 (as built for a = -3 and for a = 0), K = 12 (a =
-    -3) and K = 16 (generic a, on both 512-bit curves) and kernel 6-ed at
-    K = 8 (a = -1) and K = 14 (a = 1) against their plain versions through
+    -3) and K = 16 (generic a, on both 512-bit curves), at each later
+    (K, a) instance (K = 6, 7, 10, 12 generic a, 16 a = -3, 17) and kernel
+    6-ed at K = 8 (a = -1) and K = 14 (a = 1) against their plain versions
+    through
     straus_double_mul_public_w4: the identity among the points, zero and
     short scalars, the window edge scalars (the last add T + O, -T + T,
     T + T) for u and, shifted by two lanes, for v; those lanes also against
@@ -336,8 +347,7 @@ def test_straus_kernels_match_plain(dev, name):
     qtab = scalar_mul._build_mul_table(c, Q)
     du = scalar_mul._window_digits(ut, nbits)
     dv = scalar_mul._window_digits(vt, nbits)
-    name_k = megamul._KERNELS[(c.fp_ctx.k, "ed" if cls is ExtPoint else "w",
-                               2)][0]
+    name_k = megamul.kernel_name_of(c, 2, "ed" if cls is ExtPoint else "w")
     before = dict(megamul.launches)
     got = scalar_mul.straus_double_mul_public_w4(c, ut, P, vt, Q)
     assert megamul.launches[name_k] == before[name_k] + 1
@@ -458,14 +468,17 @@ def test_ed_wrappers_refuse_other_k_and_a(dev):
 # -- the wide instances refuse another a -------------------------------------
 
 def test_wide_wrappers_refuse_other_a(dev):
-    """(K = 16, a = -3) and (K = 12, generic a) raise on the card: the wide
-    kernels 2-4 and 6 are built for (K = 12, a = -3) and (K = 16, generic
-    a) only, and kernel 5 for K = 8 only. The C entry points refuse another
-    a themselves (cudaErrorInvalidValue)."""
+    """An unbuilt (K, a) raises on the card: WEI448 (K = 14, generic a;
+    short Weierstrass is built at K = 14 for no a) and a = 0 at K = 10
+    (built for a = -3 and generic a); kernel 5 is built for K = 8 only.
+    The first-built wide C entry points refuse the other a, now built
+    under entry points of their own, themselves (cudaErrorInvalidValue)."""
     import ctypes
-    t1 = params.get_curve("BRAINPOOLP512T1")           # K = 16, a = -3
-    r384 = params.get_curve("BRAINPOOLP384R1")         # K = 12, generic a
-    for cv in (t1, r384):
+    from libecc_tpu_torch.curves.shortw import ShortWCurve
+    w448 = params.get_curve("WEI448")                  # K = 14, generic a
+    r320 = params.get_curve("BRAINPOOLP320R1")
+    a0_320 = ShortWCurve("A0_320", r320.fp_ctx, 0, r320.b, 0, 1, r320.q)
+    for cv in (w448, a0_320):
         k = cv.fp_ctx.k
         one = cv.fp_ctx.from_ints([1, 2, 3], dev)
         P = PrjPoint(one, one, one)
@@ -480,6 +493,11 @@ def test_wide_wrappers_refuse_other_a(dev):
             megamul.windowed_mul(cv, tab, digs, PrjPoint)
         with pytest.raises(ValueError, match="built for"):
             megamul.straus_mul(cv, tab, digs, tab, digs, PrjPoint)
+    for cv in (params.get_curve("BRAINPOOLP512T1"),    # K = 16, a = -3
+               params.get_curve("BRAINPOOLP384R1")):   # K = 12, generic a
+        k = cv.fp_ctx.k
+        one = cv.fp_ctx.from_ints([1, 2, 3], dev)
+        P = PrjPoint(one, one, one)
         outs = [torch.empty_like(one) for _ in range(3)]
         rc = getattr(point._lib("point_wide"), f"point_add_k{k}")(
             ctypes.byref(point.curve_struct(cv)),
@@ -491,12 +509,11 @@ def test_wide_wrappers_refuse_other_a(dev):
     P = PrjPoint(one, one, one)
     with pytest.raises(ValueError):                    # 5: K = 8 only
         point.point_dbln_add(c, P, P, 2)
-    c = params.get_curve("P-521")                      # 6: not at K = 17
+    c = params.get_curve("P-521")                      # 5: not at K = 17
     one = c.fp_ctx.from_ints([1, 2, 3], dev)
-    tab = torch.zeros((16, 3, 17, 3), dtype=torch.int32, device=dev)
-    digs = torch.zeros((131, 3), dtype=torch.int32, device=dev)
+    P = PrjPoint(one, one, one)
     with pytest.raises(ValueError, match="built for"):
-        megamul.straus_mul(c, tab, digs, tab, digs, PrjPoint)
+        point.point_dbln_add(c, P, P, 2)
 
 
 def _wrong_a(struct, kind):
@@ -515,12 +532,31 @@ def _wrong_a(struct, kind):
     ("straus_mul_k16_w4", "straus_wide", "BRAINPOOLP512R1", "w2",
      point.A_M3),
     ("straus_mul_ed_k14_w4", "straus_ed448", "ED448", "ed2",
-     edpoint.A_M1)])
+     edpoint.A_M1),
+    ("point_add_k6_m3", "point_small", "P-192", "add", point.A_GENERIC),
+    ("point_dbl_k7_a0", "point_small", "SECP224K1", "dbl", point.A_M3),
+    ("point_add_k10_ga", "point_small", "BRAINPOOLP320R1", "add",
+     point.A_ZERO),
+    ("point_dbl_k12_ga", "point_wide_alt", "BRAINPOOLP384R1", "dbl",
+     point.A_M3),
+    ("point_add_k16_m3", "point_wide_alt", "BRAINPOOLP512T1", "add",
+     point.A_GENERIC),
+    ("windowed_mul_k6_a0_w4", "windowed_small", "SECP192K1", "w1",
+     point.A_M3),
+    ("windowed_mul_k10_m3_w4", "windowed_small", "BRAINPOOLP320T1", "w1",
+     point.A_GENERIC),
+    ("windowed_mul_k16_m3_w4", "windowed_wide_alt", "BRAINPOOLP512T1", "w1",
+     point.A_GENERIC),
+    ("straus_mul_k7_ga_w4", "straus_small", "BRAINPOOLP224R1", "w2",
+     point.A_ZERO),
+    ("straus_mul_k12_ga_w4", "straus_wide_alt", "BRAINPOOLP384R1", "w2",
+     point.A_M3),
+    ("straus_mul_k17_w4", "straus_p521", "P-521", "w2", point.A_GENERIC)])
 def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
                                                 model, wrong):
-    """Each C entry point at K = 17 and each wide Straus one returns
-    cudaErrorInvalidValue for a curve context whose a it is not built
-    for, and launches nothing."""
+    """Each C entry point at K = 17, each wide Straus one and the entry
+    points of the later (K, a) instances return cudaErrorInvalidValue for a
+    curve context whose a they are not built for, and launch nothing."""
     import ctypes
     ed = model == "ed2"
     c = (edwards.get_edwards_curve(curve) if ed
