@@ -27,8 +27,7 @@ and drives these paths at batch 8192, bytes in:
    Ed448ph vectors;
 4. batch verification (one accept for the whole batch), through
    batch_verify.ecfsdsa_verify_batch (P-256), bip0340_verify_batch
-   (secp256k1) and eddsa_verify_batch (Ed25519), and the joint-table
-   Straus straus_double_mul_public beside the separate-table one;
+   (secp256k1) and eddsa_verify_batch (Ed25519);
 5. batch verification on the large-K curves: ecfsdsa_verify_batch on
    P-384 (SHA-384, kernel 6 at K = 12) and BrainpoolP512r1 (SHA-512,
    kernel 6 at K = 16), eddsa_verify_batch("ed448" and "ed448ph",
@@ -42,7 +41,20 @@ and drives these paths at batch 8192, bytes in:
    (SHA-384) and BrainpoolP512t1 (SHA-512), and at batch 256 on the six
    curves that share an instance; ecfsdsa_verify_batch on P-521
    (SHA-512), P-224, BrainpoolP384r1 and BrainpoolP512t1, and at batch
-   1024 on the other new kernel-6 instances.
+   1024 on the other new kernel-6 instances;
+7. the cofactor > 1 curves (kernels 2-4 and 6 at K = 14, generic a, on
+   WEI448): the q*P subgroup check of key import (WEI448 at batch 8192,
+   timed; WEI25519, GOST 2012 256 A and 512 C at 256: keys d*G + T, T
+   of small order, are refused, lane for lane as the host oracle says;
+   GOST 2012 256 A's point of order 2 itself passes the check, a known
+   fault that the port shares with the JAX package), ECDSA verify through verify_batch_async (WEI448 under SHA-512 at
+   8192, timed; the others at 256), whose affine accept test reduces x(W)
+   mod q, and ecfsdsa_verify_batch (WEI448 at 8192, timed; the others at
+   256);
+8. the joint-table Straus straus_double_mul_public against the
+   separate-table one, on every curve above whose (K, a) has kernel 5 or
+   8c built: P-256 and Ed25519 (K = 8), P-384, BrainpoolP512r1, GOST512,
+   BrainpoolP512t1, P-521, WEI448 and Ed448.
 
 For each path it checks the results (valid lanes or batches, corrupted
 ones, the Wycheproof and KAT rows), counts the kernel launches of the
@@ -105,10 +117,15 @@ W_PER_WINDOW = {"m3": ((22, 30), (22, 44)), "a0": ((26, 26), (26, 40)),
 ADD_DBL_PRODUCTS = {"m3": (14, 10), "a0": (14, 10), "ga": (18, 14)}
 ED_PER_WINDOW = (16, 25)                # 4 dbl-2008-hwcd + add-2008-hwcd-3
 ED448_PER_WINDOW = (16, 26)             # the same with add-2008-hwcd (a = 1)
+ED_ADD_PRODUCTS = 9                     # add-2008-hwcd-3 (a = -1)
 ED448_ADD_PRODUCTS = 10                 # add-2008-hwcd: one product more
 ED_STRAUS_PER_WINDOW = (16, 34)         # kernel 6-ed: one more extended add
 ED448_STRAUS_PER_WINDOW = (16, 36)      # kernel 6-ed with add-2008-hwcd
 JOINT_NDBL = 2                          # the joint Straus step: 2^2*acc + T
+# kernel 5 per lane: (squares, products) of one doubling and the products
+# outside the doublings (the complete add and the Jacobian conversions);
+# two squares besides
+JOINT_PER_DBL = {"m3": ((5, 3), 18), "ga": ((7, 3), 22)}
 # the ECDSA paths: curve -> label (P-256 at K = 8, P-384 at K = 12, the
 # 512-bit curves at K = 16, P-521 at K = 17), the hash of each path's
 # fixture and batch (SHA-256 unless named: P-521 with SHA-512, as JWS
@@ -149,6 +166,18 @@ FSDSA_SMALL = 1024
 # FSDSA_FULL ones first
 F_CURVES = {cn: ({"SECP521R1": ("P-521", "SHA512")} | R_CURVES)[cn]
             for cn in (*FSDSA_FULL, *R_CURVES)}
+# the cofactor > 1 curves -> (label, hash): WEI448 (kernels 2-4 and 6 at
+# K = 14, generic a) at BATCH, timed: its keys' q*P check, ECDSA and
+# ECFSDSA; the other three (instances built before) at COF_BATCH,
+# correctness only. Their key batches get a point of small order on the
+# lanes COF_BAD (below COF_BATCH) and, at BATCH, COF_BAD_FULL too.
+COF_CURVES = {"WEI448": ("WEI448", "SHA512"),
+              "WEI25519": ("WEI25519", "SHA256"),
+              "GOST_R3410_2012_256_PARAMSETA": ("GOST 2012 256 A", "SHA256"),
+              "GOST_R3410_2012_512_PARAMSETC": ("GOST 2012 512 C", "SHA512")}
+COF_BATCH = 256
+COF_BAD = (3, 77, 130, 255)
+COF_BAD_FULL = (4097, 8191)
 # this script's directory: the root of a checkout (__file__ is unset when
 # the script is piped on standard input; the directory is then the cwd)
 HERE = os.path.dirname(os.path.abspath(globals().get("__file__",
@@ -464,7 +493,7 @@ def run(torch) -> int:
 
     source, replaces, lines = {}, {}, []
 
-    def measure(name, kfn, pfn, kreps, preps, nbytes, slots, n):
+    def measure(name, kfn, pfn, kreps, preps, nbytes, slots, n=N):
         """Time a kernel and its plain version on the same inputs, hold the
         two bitwise, and compute the bound of the work."""
         kms, kout = timer.ms(kfn, kreps)
@@ -487,7 +516,7 @@ def run(torch) -> int:
                 "replaces": replaces[name], "path": path,
                 "launches": path_counts[name],
                 "launches_per_batch": batch_counts[name],
-                **measure(name, *args, n),
+                **measure(name, *args, n=n),
                 # over every comparison of this kernel in the run
                 "max_abs_err": results[name]["max_abs_err"],
                 "library_ms": None})
@@ -630,11 +659,18 @@ def run(torch) -> int:
         r + 1, s = 0, s = q, another message, r = q, and r = 12345 + i
         (where q < p, below p - q: the r + q candidate is tried and
         rejects) on lanes 0-59, and a key batch with off-curve keys on
-        lanes 60-69."""
+        lanes 60-69. Where ceil(p/q) > 2 (the affine accept test: the
+        cofactor > 1 curves) lanes 70-79 are valid signatures whose x(W)
+        is at or above q (70-74 in [q, 2q), 75-79 in [2q, p)), r = x(W)
+        mod q, which the corrupted batch carries with the unreduced x(W)
+        as r, and the corrupted batch flips a bit of s on lanes 80-89.
+        The keys are imported without the q*P check (the cofactor > 1
+        curves run it on these keys in their own phase)."""
         qv, pc = cv.q, cv.fp_ctx.p_int
         copies = batch // unique
         nbq = (qv.bit_length() + 7) // 8
         digest = getattr(hashlib, hname.lower())
+        affine = (pc - 1) // qv + 1 > 2
         t0 = time.perf_counter()
         ds = [1 + v % (qv - 1) for v in rand_ints(unique, qv)]
         pubs = [H.ec_base_mul(cw, d) for d in ds]
@@ -644,9 +680,27 @@ def run(torch) -> int:
             e = H.trunc_msb_mod_q(digest(msg).digest(), qv)
             r, s = H.ecdsa_sign_ref(cw, d, e, 1 + rand_ints(1, qv - 1)[0])
             sigs.append(r.to_bytes(nbq, "big") + s.to_bytes(nbq, "big"))
+        wx = {}
+        for i in range(70, 80) if affine else ():
+            # W = k*G with x(W) in the lane's range, r = x(W) mod q, and
+            # the key Y = v^-1 (W - u*G) under which (r, s) verifies
+            lo, hi = (qv, 2 * qv) if i < 75 else (2 * qv, pc)
+            while True:
+                W = H.ec_base_mul(cw, 1 + rand_ints(1, qv - 1)[0])
+                if lo <= W[0] < hi:
+                    break
+            r, s = W[0] % qv, 1 + rand_ints(1, qv - 1)[0]
+            si = pow(s, -1, qv)
+            e = H.trunc_msb_mod_q(digest(msgs[i]).digest(), qv)
+            u, v = e * si % qv, r * si % qv
+            pubs[i] = H.ec_mul(cw, pow(v, -1, qv), H.ec_add(
+                cw, W, H.ec_neg(cw, H.ec_base_mul(cw, u))))
+            sigs[i] = r.to_bytes(nbq, "big") + s.to_bytes(nbq, "big")
+            wx[i] = W[0]
         pubs, msgs, sigs = pubs * copies, msgs * copies, sigs * copies
         kb = K_.pubkey_batch_from_affine_ints(
-            cv, "ECDSA", [P_[0] for P_ in pubs], [P_[1] for P_ in pubs])
+            cv, "ECDSA", [P_[0] for P_ in pubs], [P_[1] for P_ in pubs],
+            check_order=False)
         print(f"{label} fixture: {unique} unique host signatures ({hname}) "
               f"tiled to {batch} in {time.perf_counter() - t0:.1f} s")
         bad_m, bad_s = list(msgs), list(sigs)
@@ -670,6 +724,22 @@ def run(torch) -> int:
             put(i, r=12345 + i)          # is tried and rejects
         want_bad = np.ones(batch, bool)
         want_bad[:60] = False
+        for i, x in wx.items():                         # r = x(W) >= q
+            put(i, r=x)
+            want_bad[i] = False
+        for i in range(80, 90) if affine else ():       # a flipped bit of s
+            put(i, s=int.from_bytes(sigs[i][nbq:], "big") ^ 1)
+            want_bad[i] = False
+        # the affine accept test's lanes against the host oracle: two of
+        # each corruption, lanes 70-89 and two valid ones
+        for i in ({0, 1, 10, 11, 20, 21, 30, 31, 40, 41, 50, 51, 90, 91,
+                   *range(70, 90)} if affine else ()):
+            e = H.trunc_msb_mod_q(digest(bad_m[i]).digest(), qv)
+            r, s = (int.from_bytes(bad_s[i][j:j + nbq], "big")
+                    for j in (0, nbq))
+            _check(H.ecdsa_verify_ref(cw, pubs[i], e, r, s) == want_bad[i],
+                   f"{label} fixture: lane {i} is not what the host oracle "
+                   "says")
         off = list(range(60, 70))                       # off-curve keys
         bad_pub = PrjPoint(*[t.clone() for t in kb.pub])
         bad_pub.y[:, off] = cv.fp_ctx.from_ints(
@@ -787,7 +857,7 @@ def run(torch) -> int:
         """Kernels 1-4 of a curve at its path's shapes (N = 8192): kernel 1
         on random operands, 2 and 3 on the edge lanes, 4 on check_w_kernels'
         table and digits (edge scalars among them). Each entry: the kernel,
-        its plain version, their repetitions, and the bytes and multiply-add
+        its plain version, their repetitions and the bytes and multiply-add
         slots of the work."""
         ctx_, k_ = cv.fp_ctx, cv.fp_ctx.k
         fe, fmul, fsqr = 4 * k_, fmul_slots(k_), fsqr_slots(k_)
@@ -837,7 +907,8 @@ def run(torch) -> int:
     hosts, combs, fixtures, f_fix = {}, {}, {}, {}
     e_hash = {**{cn: (lb, W_HASH.get(cn, "SHA256"))
                  for cn, lb in W_CURVES.items()},
-              **R_CURVES, **{cn: (lb, "SHA256") for cn, lb in R_SHARED.items()}}
+              **R_CURVES, **COF_CURVES,
+              **{cn: (lb, "SHA256") for cn, lb in R_SHARED.items()}}
     for cname, (label, hname) in e_hash.items():
         cv = params.get_curve(cname)
         cw = H.WCurve(cv.fp_ctx.p_int, cv.a, cv.b, cv.gx, cv.gy, cv.q, cv.h)
@@ -845,9 +916,12 @@ def run(torch) -> int:
         t0 = time.perf_counter()
         combs[cname] = (scalar_mul._comb_table_dev(cv, cv.scalar_bits(), dev),
                         time.perf_counter() - t0)
+        small = cname in R_SHARED or (cname in COF_CURVES
+                                      and cname != "WEI448")
         fixtures[cname] = ecdsa_fixture(
             cv, cw, label, hname,
-            *((SHARED_BATCH, SHARED_BATCH) if cname in R_SHARED else ()))
+            *((SHARED_BATCH, SHARED_BATCH) if cname in R_SHARED else
+              (COF_BATCH, COF_BATCH) if small else ()))
     for cname, (label, hname) in F_CURVES.items():
         cv, cw = hosts[cname]
         pubs_, msgs_, sigs_ = w_fixture(
@@ -857,6 +931,16 @@ def run(torch) -> int:
         f_fix[cname] = (K_.pubkey_batch_from_affine_ints(
             cv, "ECFSDSA", [P_[0] for P_ in pubs_], [P_[1] for P_ in pubs_]),
             msgs_, sigs_)
+    # the cofactor > 1 curves: ECFSDSA fixtures (their keys imported, with
+    # the q*P check, in their phase) and three points of small order each
+    cof_ffix, cof_T = {}, {}
+    for cname, (label, hname) in COF_CURVES.items():
+        cv, cw = hosts[cname]
+        cof_ffix[cname] = w_fixture(
+            cw, lambda cw_, d, m_, hn=hname: H.ecfsdsa_sign_ref(
+                cw_, d, 1 + rand_ints(1, cw_.q - 1)[0], m_, hn),
+            BATCH if cname == "WEI448" else COF_BATCH)
+        cof_T[cname] = [H.ec_small_order_point(cw, x0) for x0 in (2, 42, 82)]
     print(f"host fixtures and combs of {len(e_hash)} curves made while the "
           "kernels build")
     wait_for_build()
@@ -1165,7 +1249,7 @@ def run(torch) -> int:
     for row in lines:
         if row["name"] in ed_mont:
             name = row["name"]
-            m = measure(name, *ed_mont[name], n2)
+            m = measure(name, *ed_mont[name], n=n2)
             m["max_abs_err"] = max(m["max_abs_err"], ed_check_err[name])
             row["ed25519"] = {"launches": ed_counts[name],
                               "launches_per_batch": e_per_batch[name], **m}
@@ -1393,33 +1477,19 @@ def run(torch) -> int:
             "replaces": replaces[name], "path": "Ed448 verify",
             "launches": x_counts[name],
             "launches_per_batch": x_per_batch[name],
-            **measure(name, *args, xn if name.startswith("mont") else N),
+            **measure(name, *args, n=xn if name.startswith("mont") else N),
             # over every comparison of this kernel in the run
             "max_abs_err": results[name]["max_abs_err"],
             "library_ms": None})
 
     lap("the Ed448 path")
 
-    # 6. batch verification: kernels 5, 8c, 6 (K = 8, 12, 16) and 6-ed
-    # (K = 8, 14) against their plain versions, then the batch entry points
+    # 6. batch verification: kernels 6 (K = 8, 12, 16) and 6-ed (K = 8,
+    # 14) against their plain versions, then the batch entry points
     # at 8192 signatures: ECFSDSA on P-256, P-384 and BrainpoolP512r1,
     # BIP0340 on secp256k1, EdDSA on Ed25519, Ed448 and Ed448ph ----------
     k1 = params.get_curve("SECP256K1")
     k1w = H.WCurve(k1.fp_ctx.p_int, k1.a, k1.b, k1.gx, k1.gy, k1.q)
-    for nd in (0, JOINT_NDBL, 4):                   # the identity, P = +-Q lanes
-        cmp("point_dbln_add", point.point_dbln_add(c, PA, PB, nd),
-            point.point_dbln_add_plain(c, PA, PB, nd), POINT_N, f", n = {nd}")
-        cmp("ed_dbln_add", edpoint.ed_dbln_add(ec, XA, XB, nd),
-            edpoint.ed_dbln_add_plain(ec, XA, XB, nd), POINT_N, f", n = {nd}")
-    G4 = point.point_dbln_add(c, PA, PB, 4)
-    E4 = edpoint.ed_dbln_add(ec, XA, XB, 4)
-    for i in range(8):
-        _check(affine_of(c, G4, i) == H.ec_add(wc, H.ec_mul(wc, 16, A[i]), B[i]),
-               f"point_dbln_add lane {i} disagrees with the host oracle")
-        _check(ed_affine_of(E4, i) == H.ed_add(hc, H.ed_mul(hc, 16, EA[i]),
-                                                 EB[i]),
-               f"ed_dbln_add lane {i} disagrees with the host oracle")
-
     def straus_check(cv, hcv, P1, P2, cls, label, compare):
         """Kernel 6 or 6-ed of cv on the lanes of P1 and P2 (identity,
         P = Q and P = -Q lanes among them): zero and short scalars, the
@@ -1476,7 +1546,7 @@ def run(torch) -> int:
            for cn in ("SECP384R1", "BRAINPOOLP512R1", "GOST512")},
         "Ed448": (x4, hx, XA4, XB4, ExtPoint),
     }
-    straus_in = {label: (cv, P1, P2, cls, *straus_check(
+    straus_in = {label: (cv, hcv, P1, P2, cls, *straus_check(
         cv, hcv, P1, P2, cls, label, label == "GOST512"))
         for label, (cv, hcv, P1, P2, cls) in straus_cases.items()}
 
@@ -1569,32 +1639,6 @@ def run(torch) -> int:
     print(f"batch-verify path: the valid {BATCH}-signature batches accept "
           f"({', '.join(paths)}); one flipped bit of s or one changed "
           "message rejects each")
-
-    # the joint-table Straus (kernels 5 and 8c), its own run on the K = 8
-    # curves
-    reset()
-    joint = {label: scalar_mul.straus_double_mul_public(cv, ut, P1, vt, P2)
-             for label, (cv, P1, P2, _, ut, vt, _, _) in straus_in.items()
-             if cv.fp_ctx.k == 8}
-    torch.cuda.synchronize()
-    joint_counts = snapshot()
-    print("joint-table Straus launches:", json.dumps(joint_counts))
-    for name in ["point_add", "point_dbl", "point_dbln_add", "ed_add",
-                 "ed_dbl", "ed_dbln_add"]:
-        _check(joint_counts[name] >= 1,
-               f"kernel {name} was not launched on the joint-table Straus")
-    # ... gives the separate-table Straus's points (kernels 6 and 6-ed) on
-    # every lane
-    for label, pts in joint.items():
-        cv, P1, P2, cls, ut, vt, _, _ = straus_in[label]
-        w4 = scalar_mul.straus_double_mul_public_w4(cv, ut, P1, vt, P2)
-        aff = (shortw.to_affine_plain if cls is PrjPoint
-               else edwards.to_affine_plain)
-        for a_, b_ in zip(aff(cv, w4), aff(cv, pts)):
-            _check(torch.equal(a_, b_), f"{label}: straus_double_mul_public "
-                   "and straus_double_mul_public_w4 differ in affine form")
-    print(f"joint-table Straus equals the separate-table one on all {N} "
-          "lanes of both K = 8 curves")
 
     # the KAT rows as batches, each (label, call, messages, signatures,
     # corruption): ECFSDSA SECP256R1 and BIP0340 SECP256K1 (sig_kats.jsonl)
@@ -1695,11 +1739,11 @@ def run(torch) -> int:
     # its first lanes. The batch's u digits are those of 128-bit z_i, half
     # of them 0, and the time depends on the digits: at K = 12 to 16 the
     # kernel takes 14-29% longer on an H100 when every lane's scalars are
-    # full-size. Kernels 5 and 8c at the joint-table Straus's shapes.
+    # full-size.
     def straus_row(label, batch_tabs, per_win):
         """A kernel-6 or 6-ed row's arguments on a batch's own tables and
         digits (batch_tabs) with straus_in[label]'s special lanes."""
-        cv, _, _, cls, _, _, check_tabs, nfix = straus_in[label]
+        cv, _, _, _, cls, _, _, check_tabs, nfix = straus_in[label]
         tabs = []
         for b, t in zip(batch_tabs, check_tabs):
             _check(b.shape == t.shape, f"{label}: the batch's tables "
@@ -1726,25 +1770,6 @@ def run(torch) -> int:
                    W_PER_WINDOW["ga"][1]),
         straus_row("Ed448", bv_marked["ed448"]["table"],
                    ED448_STRAUS_PER_WINDOW))))
-    joint_kern = {
-        "point_dbln_add": (
-            lambda: point.point_dbln_add(c, PA, PB, JOINT_NDBL),
-            lambda: point.point_dbln_add_plain(c, PA, PB, JOINT_NDBL),
-            100, 3, N * 288,
-            N * ((2 + 5 * JOINT_NDBL) * FSQR_SLOTS
-                 + (18 + 3 * JOINT_NDBL) * FMUL_SLOTS)),
-        "ed_dbln_add": (
-            lambda: edpoint.ed_dbln_add(ec, XA8, XB8, JOINT_NDBL),
-            lambda: edpoint.ed_dbln_add_plain(ec, XA8, XB8, JOINT_NDBL),
-            100, 3, N * 384,
-            N * (4 * JOINT_NDBL * FSQR_SLOTS
-                 + (4 * JOINT_NDBL + 9) * FMUL_SLOTS)),
-    }
-    source.update({"point_dbln_add": "point.cu", "ed_dbln_add": "edpoint.cu"})
-    replaces.update({
-        "point_dbln_add": "libecc_tpu/ops/pallas/point.py:507",
-        "ed_dbln_add": "libecc_tpu/ops/pallas/edpoint.py:140",
-    })
     for inst in megamul._KERNELS.values():
         if inst[0] in bv_kern:
             source[inst[0]] = f"{inst[2]}.cu"
@@ -1755,11 +1780,8 @@ def run(torch) -> int:
             per_batch_all[k_] += v
     n_before = len(lines)
     time_kernels(bv_kern, bv_counts, per_batch_all, "batch verification")
-    time_kernels(joint_kern, joint_counts, joint_counts,
-                 "joint-table Straus")
     for row in lines[:n_before]:          # the older kernels on these paths
         row["batch_verify_launches"] = bv_counts[row["name"]]
-        row["joint_straus_launches"] = joint_counts[row["name"]]
 
     lap("the batch-verify paths")
 
@@ -1896,7 +1918,7 @@ def run(torch) -> int:
         n = BATCH if cname in FSDSA_FULL else FSDSA_SMALL
         P1, P2 = [PrjPoint(*[t[:, :n].contiguous() for t in P_])
                   for P_ in (P1, P2)]
-        straus_in[label] = (cv, P1, P2, PrjPoint, *straus_check(
+        straus_in[label] = (cv, cw, P1, P2, PrjPoint, *straus_check(
             cv, cw, P1, P2, PrjPoint, label, False))
         kb_, msgs_, sigs_ = f_fix[cname]
         fn = batch_call(bv.ecfsdsa_verify_batch, kb_, hname)
@@ -1939,6 +1961,241 @@ def run(torch) -> int:
                       f"ECFSDSA {label} batch verification")
 
     lap("the registry ECFSDSA paths")
+
+    # 8. the cofactor > 1 curves (WEI448: kernels 2-4 and 6 at K = 14,
+    # generic a; the others run instances built before). Per curve: the
+    # q*P check of key import on the ECDSA fixture's keys with a point of
+    # small order added on lanes COF_BAD (and COF_BAD_FULL), against the
+    # host oracle; the clean keys through the checked import; ECDSA verify
+    # through verify_batch_async on the valid, corrupted and off-curve
+    # batches (the affine accept test: lanes 70-79 have x(W) >= q); ECFSDSA
+    # batch verification, its keys through the checked import. On WEI448,
+    # first kernels 1-4 against their plain versions (kernel 4 in its
+    # timed row), and the key import,
+    # the ECDSA batch and the ECFSDSA batch timed, with their kernel rows.
+    cof_report, cof_counts = {}, {}
+    for cname, (label, hname) in COF_CURVES.items():
+        cv, cw = hosts[cname]
+        full = cname == "WEI448"
+        fx = fixtures[cname]
+        n = len(fx.pubs)
+        if full:
+            _, _, PA_, PB_, wtab = check_w_kernels(cv, cw, label, False, N)
+        bad = [i for i in COF_BAD + COF_BAD_FULL if i < n]
+        pts = list(fx.pubs)
+        for j, i in enumerate(bad):
+            pts[i] = H.ec_add(cw, pts[i], cof_T[cname][j % 3])
+        want_ok = np.ones(n, bool)
+        want_ok[bad] = False
+        for i in bad + [0, 1, 70, n - 1]:
+            _check((H.ec_mul(cw, cv.q, pts[i]) is None) == want_ok[i],
+                   f"{label}: key {i} is not what the host oracle says")
+        xs, ys = [P_[0] for P_ in pts], [P_[1] for P_ in pts]
+        reset()
+        okm = K_.order_check_mask(cv, cv.point_from_affine_ints(xs, ys, dev))
+        _check((okm == want_ok).all(), f"{label}: the q*P check differs from "
+               f"the host oracle on keys "
+               f"{np.flatnonzero(okm != want_ok)[:20].tolist()}")
+        try:
+            K_.pubkey_batch_from_affine_ints(cv, "ECDSA", xs, ys)
+            _fail(f"{label}: keys with a small-order component imported")
+        except ValueError as e:
+            _check(str(e) == f"public key(s) {bad}: point not in the "
+                   "order-q subgroup", f"{label}: {e}")
+        fxs, fys = [P_[0] for P_ in fx.pubs], [P_[1] for P_ in fx.pubs]
+        fx.kb = K_.pubkey_batch_from_affine_ints(cv, "ECDSA", fxs, fys)
+        keys_path = snapshot()
+        names = w_names(cv)
+        for name in (names["windowed_mul"], names["point_add"],
+                     names["point_dbl"]):
+            _check(keys_path[name] >= 1, f"kernel {name} was not launched "
+                                         f"on the {label} key import")
+        print(f"{label} key import (batch {n}): the q*P check passes the "
+              f"keys d*G and refuses the {len(bad)} keys d*G + T, T of "
+              "small order, lane for lane as the host oracle does; launches "
+              + json.dumps({k_: v for k_, v in keys_path.items() if v}))
+        reset()
+        acc = ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs, hname)
+        _check(bool(acc.all()), f"{label}: verify_batch_async rejected "
+                                f"{int((~acc).sum())} valid lanes")
+        for what, kb_, ms, ss, want in (
+                ("corrupted lanes", fx.kb, fx.bad_m, fx.bad_s, fx.want_bad),
+                ("off-curve keys", fx.kb_off, fx.msgs, fx.sigs,
+                 fx.want_off)):
+            got = ecdsa.verify_batch_async(kb_, ms, ss, hname).cpu().numpy()
+            _check((got == want).all(), f"{label}: {what} wrong "
+                   f"({np.flatnonzero(got != want)[:20].tolist()})")
+        path = snapshot()
+        for name in names.values():
+            _check(path[name] >= 1,
+                   f"kernel {name} was not launched on the {label} path")
+        print(f"{label} ECDSA ({hname}, batch {n}): valid lanes accept, "
+              "among them lanes whose x(W) is at or above q (r = x(W) mod "
+              "q); r + 1, s = 0, s = q, another message, r = q, r = 12345 "
+              "+ i, r = x(W) unreduced, a flipped bit of s and off-curve "
+              "keys reject (verify_batch_async); launches "
+              + json.dumps({k_: v for k_, v in path.items() if v}))
+        pubs_, msgs_, sigs_ = cof_ffix[cname]
+        kbf = K_.pubkey_batch_from_affine_ints(
+            cv, "ECFSDSA", [P_[0] for P_ in pubs_], [P_[1] for P_ in pubs_])
+        fn = batch_call(bv.ecfsdsa_verify_batch, kbf, hname)
+        if full:
+            straus_in[label] = (cv, cw, PA_, PB_, PrjPoint, *straus_check(
+                cv, cw, PA_, PB_, PrjPoint, label, False))
+        reset()
+        _check(fn(msgs_, sigs_) is True, f"ECFSDSA {label}: the valid "
+                                         "batch rejects")
+        _check(fn(msgs_, swap(sigs_, n // 2 + 1, flip_last)) is False,
+               f"ECFSDSA {label}: one flipped bit of s accepts")
+        _check(fn(evil(msgs_, n // 3), sigs_) is False,
+               f"ECFSDSA {label}: one changed message accepts")
+        fpath = snapshot()
+        sname = megamul.kernel_name_of(cv, 2)
+        for name in (sname, names["point_add"], names["point_dbl"]):
+            _check(fpath[name] >= 1, f"kernel {name} was not launched on "
+                                     f"the ECFSDSA {label} path")
+        print(f"ECFSDSA {label} ({hname}, batch {n}): the valid batch "
+              "accepts; one flipped bit of s or one changed message "
+              "rejects; launches " + json.dumps(
+                  {k_: v for k_, v in fpath.items() if v}))
+        cof_counts[cname] = {"key import": keys_path, "ECDSA": path,
+                             "ECFSDSA": fpath}
+        note_sources(cv)
+        if not full:
+            for where, counts_ in cof_counts[cname].items():
+                note_launches(set(names.values()) | {sname}, counts_,
+                              f"{label} {where}")
+            continue
+        krep, _ = time_batch(
+            lambda: K_.pubkey_batch_from_affine_ints(cv, "ECDSA", fxs, fys),
+            f"{label} key import", ["import", "order check", "return"],
+            lambda kb_: kb_.n == n)
+        rep, _ = time_batch(
+            lambda: ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs, hname),
+            f"{label} ECDSA verify", ["digest", "scalars", "key on curve",
+                                      "comb", "table", "windowed", "accept",
+                                      "return"],
+            lambda acc_: bool(acc_.all()))
+        comb_, comb_s = combs[cname]
+        rep.update(hash=hname, comb_first_build_s=round(comb_s, 3),
+                   comb_bytes=comb_.numel() * comb_.element_size())
+        frep, marked = time_batch(
+            lambda: fn(msgs_, sigs_), f"ecfsdsa {label} batch verify",
+            ["parse", "lift", "table", "straus", "reduce", "comb", "accept",
+             "return"], lambda ok_: ok_ is True)
+        cof_report = {"keys": krep, "ecdsa": rep, "ecfsdsa": frep}
+        timed = {row["name"] for row in lines}
+        kern = {name: args for name, args in
+                w_kern(cv, PA_, PB_, wtab).items()
+                if name not in timed}
+        time_kernels(kern, path, rep["launches_per_batch"],
+                     f"{label} ECDSA verify")
+        note_launches(timed, path, f"{label} ECDSA verify")
+        time_kernels({sname: straus_row(label, marked["table"],
+                                        W_PER_WINDOW["ga"][1])},
+                     fpath, frep["launches_per_batch"],
+                     f"ECFSDSA {label} batch verification")
+        for where in ("key import", "ECFSDSA"):
+            note_launches(set(names.values()), cof_counts[cname][where],
+                          f"{label} {where}")
+
+    lap("the cofactor > 1 curves")
+
+    # 9. the joint-table Straus (kernels 5 and 8c) on every curve of
+    # straus_in whose (K, a) has kernel 5 or 8c built: P-256 and Ed25519
+    # (K = 8), P-384, BrainpoolP512r1, GOST512, Ed448, P-521,
+    # BrainpoolP512t1 and WEI448. Once an instance, on its first curve:
+    # the kernel bitwise against its plain version (n = 0, 2, 4) on the
+    # straus_check points (the identity, P = Q and P = -Q lanes among
+    # them) and, at n = 4, against the host oracle. Then, the counts set
+    # to 0 first, straus_double_mul_public on every lane of each curve's
+    # straus_check points and scalars, against straus_double_mul_public_w4
+    # in affine form; then each instance's row at n = 2.
+    def joint_names(cv, cls):
+        """Kernel 5's or 8c's count name for cv (None where it is not
+        built) and those of the add and double of its joint table."""
+        k_ = cv.fp_ctx.k
+        if cls is PrjPoint:
+            return [point.instance_name(b, cv) for b in point.BASES[::-1]]
+        if k_ not in edpoint.BUILT["ed_dbln_add"]:
+            return [None]
+        return [build.kernel_name(b, k_)
+                for b in ("ed_dbln_add", "ed_add", "ed_dbl")]
+
+    joint_in, joint_kern = {}, {}
+    for label, (cv, hcv, P1, P2, cls, *_) in straus_in.items():
+        name = joint_names(cv, cls)[0]
+        if name is None:
+            continue
+        joint_in[label] = name
+        if name in joint_kern:          # GOST512: BrainpoolP512r1's instance
+            continue
+        ed_, k_, n = cls is ExtPoint, cv.fp_ctx.k, P1.x.shape[1]
+        kfn, pfn = ((edpoint.ed_dbln_add, edpoint.ed_dbln_add_plain) if ed_
+                    else (point.point_dbln_add, point.point_dbln_add_plain))
+        for nd in (0, JOINT_NDBL, 4):
+            cmp(name, kfn(cv, P1, P2, nd), pfn(cv, P1, P2, nd), n,
+                f" ({label}), n = {nd}")
+        G4 = kfn(cv, P1, P2, 4)
+        for i in range(8):
+            if ed_:
+                ok = ed_affine_of(G4, i, cv) == H.ed_add(
+                    hcv, H.ed_mul(hcv, 16, ed_affine_of(P1, i, cv)),
+                    ed_affine_of(P2, i, cv))
+            else:
+                ok = affine_of(cv, G4, i) == H.ec_add(
+                    hcv, H.ec_mul(hcv, 16, affine_of(cv, P1, i)),
+                    affine_of(cv, P2, i))
+            _check(ok, f"{name} ({label}) lane {i} disagrees with the host "
+                       "oracle")
+        if ed_:                         # 4 squares and 4 products a doubling
+            nsq, nmu = 4 * JOINT_NDBL, 4 * JOINT_NDBL + (
+                ED448_ADD_PRODUCTS if cv.a == 1 else ED_ADD_PRODUCTS)
+        else:
+            (dsq, dmu), other = JOINT_PER_DBL[a_tag(cv)]
+            nsq, nmu = 2 + dsq * JOINT_NDBL, other + dmu * JOINT_NDBL
+        ncoord = len(cls._fields)
+        joint_kern[name] = (n, (
+            lambda cv=cv, A_=P1, B_=P2, f=kfn: f(cv, A_, B_, JOINT_NDBL),
+            lambda cv=cv, A_=P1, B_=P2, f=pfn: f(cv, A_, B_, JOINT_NDBL),
+            100, 3, n * 3 * ncoord * 4 * k_,
+            n * (nsq * fsqr_slots(k_) + nmu * fmul_slots(k_))))
+        source[name] = ("edpoint.cu" if ed_ else
+                        f"{point.BUILT[(k_, point.a_kind(cv))][0]}.cu")
+        replaces[name] = ("libecc_tpu/ops/pallas/edpoint.py:140" if ed_
+                          else "libecc_tpu/ops/pallas/point.py:507")
+    reset()
+    joint = {label: scalar_mul.straus_double_mul_public(cv, ut, P1, vt, P2)
+             for label, (cv, _, P1, P2, _, ut, vt, _, _) in straus_in.items()
+             if label in joint_in}
+    torch.cuda.synchronize()
+    joint_counts = snapshot()
+    print("joint-table Straus launches:",
+          json.dumps({k_: v for k_, v in joint_counts.items() if v}))
+    for label in joint_in:
+        cv, _, _, _, cls = straus_in[label][:5]
+        for name in joint_names(cv, cls):
+            _check(joint_counts[name] >= 1, f"kernel {name} was not "
+                   f"launched on the joint-table Straus ({label})")
+    # ... gives the separate-table Straus's points (kernels 6 and 6-ed) on
+    # every lane
+    for label, pts in joint.items():
+        cv, _, P1, P2, cls, ut, vt, _, _ = straus_in[label]
+        w4 = scalar_mul.straus_double_mul_public_w4(cv, ut, P1, vt, P2)
+        aff = (shortw.to_affine_plain if cls is PrjPoint
+               else edwards.to_affine_plain)
+        for a_, b_ in zip(aff(cv, w4), aff(cv, pts)):
+            _check(torch.equal(a_, b_), f"{label}: straus_double_mul_public "
+                   "and straus_double_mul_public_w4 differ in affine form")
+    print("joint-table Straus equals the separate-table one on every lane "
+          f"of {', '.join(joint)}")
+    note_launches({row["name"] for row in lines}, joint_counts,
+                  "joint-table Straus")
+    for name, (n, args) in joint_kern.items():
+        time_kernels({name: args}, joint_counts, joint_counts,
+                     "joint-table Straus", n)
+
+    lap("the joint-table Straus")
     for row in lines:
         if re.search(r"_k1[467](_|$)", row["name"]):
             # the large-K body backend these instances stand for
@@ -1971,6 +2228,13 @@ def run(torch) -> int:
     print(json.dumps({"batch_verify_registry": {
         name: rated(rep, "signatures_per_s")
         for name, rep in f_report.items()}}))
+    print(json.dumps({"cofactor": {
+        "key_import_WEI448": rated(cof_report["keys"], "keys_per_s"),
+        "ecdsa_WEI448": rated(cof_report["ecdsa"], "verifies_per_s"),
+        "ecfsdsa_WEI448": rated(cof_report["ecfsdsa"], "signatures_per_s"),
+        "launches": {cn: {w: {k_: v for k_, v in c_.items() if v}
+                          for w, c_ in by.items()}
+                     for cn, by in cof_counts.items()}}}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

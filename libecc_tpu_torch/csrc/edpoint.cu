@@ -8,7 +8,8 @@
 // 8a and 8b are built for a = -1 at K = 8 (Ed25519) and for a = 1 at
 // K = 14 (Ed448; with kernel 1 at K = 14 and kernel 7's K = 14 instance
 // they are the port's counterpart of the rows.py:RowOps backend, :129,
-// which the TPU kernels take for Ed448's K = 32); 8c for a = -1 at K = 8.
+// which the TPU kernels take for Ed448's K = 32); 8c likewise, at both
+// (K, a), its formula set the AK template flag as 8a's and 8b's.
 //
 // Bound on the H100: integer-multiply issue. An add is 9 field products
 // for 12 x 4K bytes of traffic per lane (8 coordinates in, 4 out): at
@@ -56,7 +57,7 @@ ed_dbl_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
   store_ext<K>(x3, y3, z3, t3, n, lane, ed_dbl<K, AK>(X, Y, Z, C));
 }
 
-template <int K>
+template <int K, int AK>
 __global__ void __launch_bounds__(256)
 ed_dbln_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
                    const uint32_t* __restrict__ y1,
@@ -74,9 +75,9 @@ ed_dbln_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
   ExtPt<K> acc = load_ext<K>(x1, y1, z1, t1, n, lane);
 #pragma unroll 1
   for (int i = 0; i < ndbl; ++i)
-    acc = ed_dbl<K, ED_A_M1>(acc.x, acc.y, acc.z, C);
+    acc = ed_dbl<K, AK>(acc.x, acc.y, acc.z, C);
   const ExtPt<K> T = load_ext<K>(x2, y2, z2, t2, n, lane);
-  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<K, ED_A_M1>(acc, T, C));
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<K, AK>(acc, T, C));
 }
 
 constexpr int kThreads = 256;
@@ -105,6 +106,19 @@ int launch_dbl(const EdCurveCtx<K>* C, const uint32_t* const* in,
     ed_dbl_kernel<K, AK><<<blocks_for(n), kThreads, 0,
                            (cudaStream_t)stream>>>(
         *C, in[0], in[1], in[2], out[0], out[1], out[2], out[3], n);
+  return (int)cudaGetLastError();
+}
+
+template <int K, int AK>
+int launch_dbln_add(const EdCurveCtx<K>* C, const uint32_t* const* in,
+                    uint32_t* const* out, long long n, int ndbl,
+                    void* stream) {
+  if (C->a_kind != AK || ndbl < 0) return (int)cudaErrorInvalidValue;
+  if (n > 0)
+    ed_dbln_add_kernel<K, AK><<<blocks_for(n), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+        *C, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], out[0],
+        out[1], out[2], out[3], n, ndbl);
   return (int)cudaGetLastError();
 }
 
@@ -139,18 +153,16 @@ int ed_dbl_k14(const ecc::EdCurveCtx<14>* C, const uint32_t* const* in,
 }
 
 // in: x1, y1, z1, t1 (P), x2, y2, z2, t2 (T); out: 2^ndbl * P + T.
-// Built for a = -1 at K = 8 only.
 int ed_dbln_add_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
                    uint32_t* const* out, long long n, int ndbl,
                    void* stream) {
-  if (C->a_kind != ecc::ED_A_M1 || ndbl < 0)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    ecc::ed_dbln_add_kernel<8><<<ecc::blocks_for(n), ecc::kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        *C, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], out[0],
-        out[1], out[2], out[3], n, ndbl);
-  return (int)cudaGetLastError();
+  return ecc::launch_dbln_add<8, ecc::ED_A_M1>(C, in, out, n, ndbl, stream);
+}
+
+int ed_dbln_add_k14(const ecc::EdCurveCtx<14>* C, const uint32_t* const* in,
+                    uint32_t* const* out, long long n, int ndbl,
+                    void* stream) {
+  return ecc::launch_dbln_add<14, ecc::ED_A_1>(C, in, out, n, ndbl, stream);
 }
 
 }  // extern "C"

@@ -233,12 +233,13 @@ __device__ __forceinline__ void store_pt(uint32_t* x, uint32_t* y,
   store_fe<K>(z, n, lane, P.z);
 }
 
-// Kernels 2 and 3 as templates over K and the formula set AK: one thread
-// per lane, the whole formula in registers. point.cu builds them at K = 8
-// for every a, point_wide.cu at K = 12 (a = -3) and K = 16 (generic a),
-// point_p521.cu at K = 17 (a = -3), point_small.cu at K = 6 and 7 (every
-// a) and K = 10 (a = -3, generic a), point_wide_alt.cu at K = 12 (generic
-// a) and K = 16 (a = -3).
+// Kernels 2, 3 and 5 as templates over K and the formula set AK: one
+// thread per lane, the whole formula in registers. point.cu builds them at
+// K = 8 for every a, point_wide.cu at K = 12 (a = -3) and K = 16 (generic
+// a), point_p521.cu at K = 17 (a = -3), point_wide_alt.cu kernels 2 and 3
+// at K = 12 (generic a) and all three at K = 16 (a = -3), point_wei448.cu
+// all three at K = 14 (generic a: WEI448), point_small.cu kernels 2 and 3
+// at K = 6 and 7 (every a) and K = 10 (a = -3, generic a).
 template <int K, int AK>
 __global__ void __launch_bounds__(256)
 point_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
@@ -254,6 +255,29 @@ point_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
   const Pt<K> P = load_pt<K>(x1, y1, z1, n, lane);
   const Pt<K> Q = load_pt<K>(x2, y2, z2, n, lane);
   store_pt<K>(x3, y3, z3, n, lane, rcb_add<K, AK>(P, Q, C));
+}
+
+// Kernel 5 (public points only, as the reference's block): to_jac with
+// the identity select, n dbl-2001-b doublings, from_jac, then one complete
+// add, all in registers; n is a run-time argument (one binary serves every
+// n).
+template <int K, int AK>
+__global__ void __launch_bounds__(256)
+point_dbln_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
+                      const uint32_t* __restrict__ y1,
+                      const uint32_t* __restrict__ z1,
+                      const uint32_t* __restrict__ x2,
+                      const uint32_t* __restrict__ y2,
+                      const uint32_t* __restrict__ z2,
+                      uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
+                      uint32_t* __restrict__ z3, long long n, int ndbl) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  Pt<K> J = to_jac<K>(load_pt<K>(x1, y1, z1, n, lane), C);
+#pragma unroll 1
+  for (int i = 0; i < ndbl; ++i) J = jac_dbl<K, AK>(J, C);
+  const Pt<K> T = load_pt<K>(x2, y2, z2, n, lane);
+  store_pt<K>(x3, y3, z3, n, lane, rcb_add<K, AK>(from_jac<K>(J, C), T, C));
 }
 
 template <int K, int AK>
@@ -316,6 +340,21 @@ int launch_dbl(const CurveCtx<K>* C, const uint32_t* const* in,
   });
 }
 
+// Kernel 5 at K for the formula sets AKs. in: x1, y1, z1 (P), x2, y2, z2
+// (T); out: 2^ndbl * P + T. A negative ndbl returns cudaErrorInvalidValue.
+template <int K, int... AKs>
+int launch_dbln_add(const CurveCtx<K>* C, const uint32_t* const* in,
+                    uint32_t* const* out, long long n, int ndbl,
+                    void* stream) {
+  if (ndbl < 0) return (int)cudaErrorInvalidValue;
+  return launch_for_a<AKs...>(C->a_kind, n, [&](auto ak) {
+    point_dbln_add_kernel<K, decltype(ak)::value>
+        <<<point_blocks(n), kPointThreads, 0, (cudaStream_t)stream>>>(
+            *C, in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1],
+            out[2], n, ndbl);
+  });
+}
+
 }  // namespace ecc
 
 // The C entry points of kernels 2 and 3 for one (K, formula set AK),
@@ -335,4 +374,14 @@ int launch_dbl(const CurveCtx<K>* C, const uint32_t* const* in,
                              uint32_t* const* out, long long n,            \
                              void* stream) {                               \
     return ecc::launch_dbl<K, AK>(C, in, out, n, stream);                  \
+  }
+
+// The C entry point NAME of kernel 5 for one (K, formula set AK). in: x1,
+// y1, z1 (P), x2, y2, z2 (T); out: 2^ndbl * P + T (each uint32[K][n]). A
+// context of another a_kind returns cudaErrorInvalidValue and launches
+// nothing.
+#define ECC_DBLN_ADD_ENTRY_POINT(NAME, K, AK)                              \
+  int NAME(const ecc::CurveCtx<K>* C, const uint32_t* const* in,          \
+           uint32_t* const* out, long long n, int ndbl, void* stream) {    \
+    return ecc::launch_dbln_add<K, AK>(C, in, out, n, ndbl, stream);       \
   }

@@ -9,7 +9,9 @@
 // kernels 4 and 6 at K = 6 and 7 (every a) and K = 10 (a = -3, generic
 // a); windowed_wide_alt.cu and straus_wide_alt.cu kernels 4 and 6 at
 // K = 12 (generic a) and K = 16 (a = -3); straus_p521.cu kernel 6 at
-// K = 17 (a = -3). Each file is one nvcc process of the parallel build.
+// K = 17 (a = -3); windowed_wei448.cu and straus_wei448.cu kernels 4 and
+// 6 at K = 14 (generic a: WEI448). Each file is one nvcc process of the
+// parallel build.
 // The design notes are in windowed.cu.
 #pragma once
 

@@ -7,8 +7,8 @@ reference's bodies (``_add_body`` :49, ``_dbl_body`` :75) operation for
 operation on plain tensor field operations, for every a (add-2008-hwcd-3
 for a = -1, add-2008-hwcd otherwise; dbl-2008-hwcd). Kernels 8a and 8b
 are built for a = -1 at K = 8 (Ed25519) and a = 1 at K = 14 (Ed448, where
-they stand for the TPU's large-K ``rows.py:RowOps`` backend); kernel 8c
-for a = -1 at K = 8 (``BUILT``). On the card any other (K, a) raises.
+they stand for the TPU's large-K ``rows.py:RowOps`` backend), and so is
+kernel 8c (``BUILT``). On the card any other (K, a) raises.
 Wrappers launch the kernels for tensors on the card and take the plain
 versions only for tensors on the CPU.
 """
@@ -31,7 +31,7 @@ A_M1, A_1 = 1, 2        # ecc::ED_A_M1, ecc::ED_A_1
 # (Ed25519), a = 1 at K = 14 (Ed448). The support checks, the ctypes typing
 # and the launch counts all derive from this table.
 BUILT = {"ed_add": {8: A_M1, 14: A_1}, "ed_dbl": {8: A_M1, 14: A_1},
-         "ed_dbln_add": {8: A_M1}}
+         "ed_dbln_add": {8: A_M1, 14: A_1}}
 
 launches = {kernel_name(base, k): 0 for base, ks in BUILT.items()
             for k in ks}
@@ -192,8 +192,7 @@ def ed_dbl(curve, P):
 
 
 def ed_dbln_add(curve, P, Q, ndbl: int):
-    """2^ndbl * P + Q; kernel 8c (K = 8, a = -1) for tensors on the
-    card."""
+    """2^ndbl * P + Q; kernel 8c for tensors on the card."""
     if P.x.device.type == "cpu":
         return ed_dbln_add_plain(curve, P, Q, ndbl)
     if ndbl < 0:

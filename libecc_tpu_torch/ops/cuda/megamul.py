@@ -1,8 +1,9 @@
 """Kernels 4, 6, 7 and 6-ed: the whole fixed-window scalar multiply and the
 whole Straus dual multiply (``csrc/windowed.cu``; the other instances in
 ``csrc/windowed_wide.cu``, ``windowed_wide_alt.cu``, ``windowed_small.cu``,
-``windowed_p521.cu``, ``straus_wide.cu``, ``straus_wide_alt.cu``,
-``straus_small.cu``, ``straus_p521.cu`` and ``straus_ed448.cu``).
+``windowed_p521.cu``, ``windowed_wei448.cu``, ``straus_wide.cu``,
+``straus_wide_alt.cu``, ``straus_small.cu``, ``straus_p521.cu``,
+``straus_wei448.cu`` and ``straus_ed448.cu``).
 
 Counterpart of ``libecc_tpu/ops/pallas/megamul.py``: ``windowed_mul``
 (npairs 1) and ``straus_mul`` (npairs 2), each in two models. The model
@@ -23,11 +24,11 @@ The kernels read the entry by index, so they serve PUBLIC scalars only
 w -> w-1 fallback have no counterpart: the kernels are built at w = 4 for
 K = 8 (all four; every a, Edwards a = -1), for kernels 7 and 6-ed at
 K = 14 (Edwards a = 1, Ed448), and for kernels 4 and 6 at K = 6 and 7
-(every a), K = 10 and 12 (a = -3 and generic a), K = 16 (a = -3 and
-generic a: the 512-bit curves) and K = 17 (a = -3, P-521). The K = 14,
-16 and 17 instances are the counterpart of the TPU's large-K
-``rows.py:RowOps`` backend. The wrappers raise on any other shape or a
-for a tensor on the card.
+(every a), K = 10 and 12 (a = -3 and generic a), K = 14 (generic a:
+WEI448), K = 16 (a = -3 and generic a: the 512-bit curves) and K = 17
+(a = -3, P-521). The K = 14, 16 and 17 instances are the counterpart of
+the TPU's large-K ``rows.py:RowOps`` backend. The wrappers raise on any
+other shape or a for a tensor on the card.
 """
 
 from __future__ import annotations
@@ -78,12 +79,13 @@ _KERNELS = {
                          "straus_p521"),
     (14, "ed", 2, A_1): ("straus_mul_ed_k14_w4", "straus_mul_ed_k14_w4",
                          "straus_ed448")}
-# kernels 4 and 6 at K = 6, 7 (every a) and 10 (a = -3, generic a), and at
-# K = 12 (generic a) and 16 (a = -3)
+# kernels 4 and 6 at K = 6, 7 (every a) and 10 (a = -3, generic a), at
+# K = 12 (generic a) and 16 (a = -3), and at K = 14 (generic a: WEI448)
 for _k, _kinds, _sfx in ((6, A_TAGS, "small"), (7, A_TAGS, "small"),
                          (10, (A_M3, A_GENERIC), "small"),
                          (12, (A_GENERIC,), "wide_alt"),
-                         (16, (A_M3,), "wide_alt")):
+                         (16, (A_M3,), "wide_alt"),
+                         (14, (A_GENERIC,), "wei448")):
     for _a in _kinds:
         for _np, _base in ((1, "windowed"), (2, "straus")):
             _name = f"{_base}_mul_k{_k}_{A_TAGS[_a]}_w4"

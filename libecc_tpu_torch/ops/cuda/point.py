@@ -1,9 +1,10 @@
 """Kernels 2, 3 and 5: complete point addition, doubling and the fused
 2^n*P + T step (``csrc/point.cu``; the K = 12 (a = -3) and K = 16 (generic
-a) instances of 2 and 3 in ``csrc/point_wide.cu``, the K = 17 ones in
-``csrc/point_p521.cu``, the K = 6, 7 and 10 ones in
-``csrc/point_small.cu``, K = 12 (generic a) and K = 16 (a = -3) in
-``csrc/point_wide_alt.cu``).
+a) instances in ``csrc/point_wide.cu``, the K = 17 ones in
+``csrc/point_p521.cu``, the K = 14 (generic a: WEI448) ones in
+``csrc/point_wei448.cu``, kernels 2 and 3 at K = 6, 7 and 10 in
+``csrc/point_small.cu``, at K = 12 (generic a) and all three at K = 16
+(a = -3) in ``csrc/point_wide_alt.cu``).
 
 Counterparts of ``libecc_tpu/ops/pallas/point.py:point_add`` /
 ``point_dbl`` / ``point_dbln_add``. The plain versions below evaluate the
@@ -42,21 +43,24 @@ _WIDE = ("point_add", "point_dbl")
 # a = -3; K = 16, generic a; K = 17, a = -3): their entry points are
 # <base>_k<K> and they count under build.kernel_name(base, K). The later
 # ones (K = 6 and 7 for every a, K = 10 for a = -3 and generic a, K = 12
-# for generic a, K = 16 for a = -3) have one entry point per (K, a),
-# <base>_k<K>_<tag>, counted under that name. Kernel 5 is built at K = 8
-# only. The support check, the ctypes typing and the launch counts derive
-# from this table.
+# for generic a, K = 16 for a = -3, K = 14 for generic a) have one entry
+# point per (K, a), <base>_k<K>_<tag>, counted under that name. Kernel 5
+# (the joint-table Straus step) is built at K = 8 and at the (K, a) of the
+# curves whose joint-table Straus runs on the card: P-384, the 512-bit
+# curves of either a, P-521 and WEI448. The support check, the ctypes
+# typing and the launch counts derive from this table.
 BUILT = {(8, A_GENERIC): ("point", BASES, ""), (8, A_M3): ("point", BASES, ""),
          (8, A_ZERO): ("point", BASES, ""),
-         (12, A_M3): ("point_wide", _WIDE, ""),
-         (16, A_GENERIC): ("point_wide", _WIDE, ""),
-         (17, A_M3): ("point_p521", _WIDE, ""),
+         (12, A_M3): ("point_wide", BASES, ""),
+         (16, A_GENERIC): ("point_wide", BASES, ""),
+         (17, A_M3): ("point_p521", BASES, ""),
          **{(k, a): ("point_small", _WIDE, A_TAGS[a])
             for k, kinds in ((6, A_TAGS), (7, A_TAGS),
                              (10, (A_M3, A_GENERIC)))
             for a in kinds},
          (12, A_GENERIC): ("point_wide_alt", _WIDE, "ga"),
-         (16, A_M3): ("point_wide_alt", _WIDE, "m3")}
+         (16, A_M3): ("point_wide_alt", BASES, "m3"),
+         (14, A_GENERIC): ("point_wei448", BASES, "ga")}
 
 
 def _entry(base: str, k: int, tag: str) -> str:

@@ -70,6 +70,41 @@ def ec_neg(c: WCurve, P):
     return (P[0], (-P[1]) % c.p)
 
 
+def sqrt_mod(v: int, p: int):
+    """A square root of v mod the odd prime p (Tonelli-Shanks), or None."""
+    v %= p
+    if v == 0:
+        return 0
+    if pow(v, (p - 1) // 2, p) != 1:
+        return None
+    q, s = p - 1, 0
+    while q % 2 == 0:
+        q, s = q // 2, s + 1
+    z = next(z for z in range(2, p) if pow(z, (p - 1) // 2, p) == p - 1)
+    m, c, t, r = s, pow(z, q, p), pow(v, q, p), pow(v, (q + 1) // 2, p)
+    while t != 1:
+        i, t2 = 0, t
+        while t2 != 1:
+            t2, i = t2 * t2 % p, i + 1
+        b = pow(c, 1 << (m - i - 1), p)
+        m, c, t, r = i, b * b % p, t * b * b % p, r * b % p
+    return r
+
+
+def ec_small_order_point(c: WCurve, x0: int = 2):
+    """A point T != None whose order divides the cofactor h (h > 1): q
+    times the first curve point with x >= x0 whose q-multiple is not the
+    identity."""
+    x = x0
+    while True:
+        y = sqrt_mod(x ** 3 + c.a * x + c.b, c.p)
+        if y is not None:
+            T = ec_mul(c, c.q, (x, y))
+            if T is not None:
+                return T
+        x += 1
+
+
 def window_edge_scalars(q: int, w: int = 4) -> list[int]:
     """Scalars that drive a w-bit fixed-window multiply of a point of order
     q through the complete add's edge cases in its last window: 0 (every

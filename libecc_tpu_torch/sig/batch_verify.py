@@ -18,13 +18,14 @@ the z_i (2^-128), so ``rng`` must be unpredictable: it defaults to
 The per-signature parsing, range checks and challenge hashes run on the
 host (hashlib: the SHA-2 and SHA-3 names, and SHA-512 or SHAKE256 for
 EdDSA), as in the reference. The card runs every curve whose (K, a) has
-kernel 6 or 6-ed (``ops/cuda/megamul.py``): ECFSDSA on the registry's
-short-Weierstrass curves at K = 6 to 17 (P-192 to P-521, the Brainpool,
-SM2, BIGN and GOST curves, secp192k1, and secp224k1, whose signatures are
-28 + 28 + 29 bytes), BIP0340 on secp256k1, Ed25519 and Ed448. WEI448
-(K = 14) raises there: its kernel 6 is not built. Every entry point runs
-on the card unless
-``device="cpu"`` is passed, and returns a Python bool.
+kernel 6 or 6-ed (``ops/cuda/megamul.py``): ECFSDSA on every
+short-Weierstrass curve of the registry, K = 6 to 17 (P-192 to P-521, the
+Brainpool, SM2, BIGN and GOST curves, secp192k1, secp224k1, whose
+signatures are 28 + 28 + 29 bytes, and the cofactor > 1 curves WEI25519
+and WEI448, whose keys come through the q*P check of
+``keys.pubkey_batch_from_affine_ints``), BIP0340 on secp256k1, Ed25519
+and Ed448. Every entry point runs on the card unless ``device="cpu"`` is
+passed, and returns a Python bool.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """EC public keys for verification.
 
 Port of the verify-side part of ``libecc_tpu/sig/keys.py``: ``KeyBatch``
-(with ``pub_affine_ints``), ``pubkey_batch_from_affine_ints`` (host range
-and on-curve validation, which raises) and ``import_pub_raw``.
+(with ``pub_affine_ints``), ``order_check_mask`` (the batched q*P
+subgroup check), ``pubkey_batch_from_affine_ints`` (host range and
+on-curve validation and, on cofactor > 1 curves, the subgroup check; each
+raises) and ``import_pub_raw``.
 """
 
 from __future__ import annotations
@@ -11,8 +13,13 @@ from dataclasses import dataclass
 
 import torch
 
+import numpy as np
+
+from .. import stages
 from ..config import resolve_device
-from ..curves.shortw import ShortWCurve, PrjPoint, to_affine_plain
+from ..curves import scalar_mul
+from ..curves.shortw import ShortWCurve, PrjPoint, is_infinity_mask, \
+    to_affine_plain
 from ..nn import core as nn
 
 
@@ -39,6 +46,20 @@ class KeyBatch:
                 inf.cpu().numpy())
 
 
+def order_check_mask(curve: ShortWCurve, pub: PrjPoint) -> np.ndarray:
+    """Batched q*P == infinity check (reference: check_prj_pt_order,
+    prj_pt.c:1909): True lanes have order dividing q. One windowed multiply
+    by the PUBLIC scalar q, broadcast over the lanes, on the keys' device
+    (kernel 4 on the card). Returns an np.bool mask."""
+    kq, n = curve.q_ctx.k, pub.x.shape[1]
+    ql = curve.q_ctx.col(curve.q, pub.x.device).expand(kq, n).contiguous()
+    qP = scalar_mul.windowed_mul_public(curve, ql, pub,
+                                        nbits=curve.q.bit_length())
+    ok = is_infinity_mask(curve, qP)
+    stages.mark("order check", ok)
+    return ok.cpu().numpy()
+
+
 def pubkey_batch_from_affine_ints(curve: ShortWCurve, alg: str, xs, ys,
                                   validate: bool = True,
                                   check_order: bool | None = None,
@@ -47,9 +68,12 @@ def pubkey_batch_from_affine_ints(curve: ShortWCurve, alg: str, xs, ys,
     coordinates below p and lies on the curve (an off-curve key enables
     invalid-curve attacks), raising ValueError otherwise.
 
-    check_order (default: exactly for h > 1 curves) asks for the q*P
-    subgroup check, which this slice does not provide: it raises rather
-    than skip the check."""
+    check_order: run the q*P == infinity subgroup check
+    (``order_check_mask``) on the keys' device and raise ValueError naming
+    the keys outside the order-q subgroup. Default (None): exactly for
+    h > 1 curves (WEI25519, WEI448, GOST R 34.10-2012 256 A and 512 C),
+    where an imported point can carry a small-order component; on h == 1
+    curves on-curve membership already implies order q."""
     dev = resolve_device(device)
     if validate:
         p = curve.fp_ctx.p_int
@@ -58,13 +82,16 @@ def pubkey_batch_from_affine_ints(curve: ShortWCurve, alg: str, xs, ys,
                 raise ValueError(f"public key {i}: coordinate out of range")
             if (y * y - (x * x * x + curve.a * x + curve.b)) % p != 0:
                 raise ValueError(f"public key {i}: point not on curve")
+    pub = curve.point_from_affine_ints(xs, ys, dev)
     if check_order is None:
         check_order = validate and curve.h > 1
     if check_order:
-        raise NotImplementedError(
-            f"{curve.name}: the q*P subgroup check for cofactor {curve.h} "
-            "curves is not ported yet")
-    pub = curve.point_from_affine_ints(xs, ys, dev)
+        stages.mark("import", pub)
+        okm = order_check_mask(curve, pub)
+        if not okm.all():
+            bad = [i for i, v in enumerate(okm) if not v]
+            raise ValueError(
+                f"public key(s) {bad}: point not in the order-q subgroup")
     return KeyBatch(curve=curve, alg=alg, n=len(xs), priv=None, pub=pub)
 
 

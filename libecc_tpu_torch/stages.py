@@ -19,6 +19,10 @@ Marks, in the order one batch passes them:
   multiply's, then "accept";
 * ``curves.scalar_mul.fixed_base_double_mul_public``: "comb" (u*G),
   "table" (the table and the window digits), "windowed" (v*Q);
+* ``sig.keys.pubkey_batch_from_affine_ints``, where the q*P subgroup
+  check runs (h > 1 by default): "import" (the host range and on-curve
+  checks, the keys uploaded), then ``order_check_mask``'s "order
+  check";
 * ``sig.batch_verify``'s three entry points: "keys" (BIP0340 only: the
   keys' affine coordinates), "parse" (the host loop: lengths, ranges,
   challenges, z_i, c), "lift" (ECFSDSA: R uploaded; BIP0340: R lifted

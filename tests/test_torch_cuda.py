@@ -78,12 +78,14 @@ def _point_pairs(c, rng, n, dev):
 # Kernels 1-4 at K = 8 (every a), K = 12 (P-384, a = -3), K = 16 (the
 # 512-bit curves, generic a) and K = 17 (P-521, a = -3), and the later
 # instances: K = 6 and 7 for every a, K = 10 for a = -3 and generic a,
-# K = 12 for generic a and K = 16 for a = -3. K and the scalar bits come
+# K = 12 for generic a, K = 16 for a = -3 and K = 14 for generic a
+# (WEI448). K and the scalar bits come
 # from the curve (secp224k1: K = 7 coordinates, a 225-bit q at K = 8).
 # One curve for each (K, a) instance:
 NEW_W_CURVES = ["P-192", "BRAINPOOLP192R1", "SECP192K1", "P-224",
                 "BRAINPOOLP224R1", "SECP224K1", "BRAINPOOLP320T1",
-                "BRAINPOOLP320R1", "BRAINPOOLP384R1", "BRAINPOOLP512T1"]
+                "BRAINPOOLP320R1", "BRAINPOOLP384R1", "BRAINPOOLP512T1",
+                "WEI448"]
 
 
 @pytest.mark.parametrize("which", ["p", "q"])
@@ -285,26 +287,36 @@ def test_ed_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                              device=dev), digs, ExtPoint)
 
 
-@pytest.mark.parametrize("name", ["P-256", "SECP256K1"])
-def test_dbln_add_kernel_matches_plain(dev, name):
+# kernel 5's instances: K = 8 (a = -3 and a = 0), K = 12 (a = -3), K = 16
+# (generic a and a = -3), K = 17 (a = -3), K = 14 (generic a); each with
+# kernel 8c at the K = 8 and 14 Edwards instances
+@pytest.mark.parametrize("name,ed_name", [
+    ("P-256", "ED25519"), ("SECP256K1", "ED25519"), ("P-384", "ED25519"),
+    ("BRAINPOOLP512R1", "ED25519"), ("BRAINPOOLP512T1", "ED448"),
+    ("P-521", "ED448"), ("WEI448", "ED448")])
+def test_dbln_add_kernel_matches_plain(dev, name, ed_name):
     """Kernel 5 (2^n*P + Q) for n = 0, 1, 2, 4 and kernel 8c, identity
-    lanes included."""
+    lanes included (and, for kernel 8c, P = Q and P = -Q)."""
     c = params.get_curve(name)
     rng = np.random.RandomState(76)
     A, B = _points(c, rng, 777, dev), _points(c, rng, 777, dev)
-    before = point.launches["point_dbln_add"]
+    name_k = point.instance_name("point_dbln_add", c)
+    before = dict(point.launches)
     for n in (0, 1, 2, 4):
         got = c.pdbln_add(A, B, n)
         want = point.point_dbln_add_plain(c, A, B, n)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert point.launches["point_dbln_add"] == before + 4
-    e = edwards.get_edwards_curve("ED25519")
-    EA = _ed_extended(e, rng, _ed_affine(e, rng, 777), dev)
-    EB = _ed_extended(e, rng, _ed_affine(e, rng, 777), dev)
+    assert point.launches[name_k] == before[name_k] + 4
+    assert sum(point.launches.values()) == sum(before.values()) + 4
+    e = edwards.get_edwards_curve(ed_name)
+    EA, EB = _ed_pairs(e, rng, 777, dev)
+    ed_k = kernel_name("ed_dbln_add", e.fp_ctx.k)
+    before = edpoint.launches[ed_k]
     for n in (0, 2, 4):
         got = e.pdbln_add(EA, EB, n)
         want = edpoint.ed_dbln_add_plain(e, EA, EB, n)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert edpoint.launches[ed_k] == before + 3
     with pytest.raises(ValueError):
         point.point_dbln_add(c, A, B, -1)
 
@@ -321,8 +333,8 @@ def test_straus_kernels_match_plain(dev, name):
     straus_double_mul_public_w4: the identity among the points, zero and
     short scalars, the window edge scalars (the last add T + O, -T + T,
     T + T) for u and, shifted by two lanes, for v; those lanes also against
-    the host oracle's u*P + v*Q. At K = 8, the same points from the
-    joint-table Straus (kernels 5 and 8c)."""
+    the host oracle's u*P + v*Q. Where kernel 5 (8c) is built, the same
+    points from the joint-table Straus."""
     rng = np.random.RandomState(77)
     n = 300
     if name.startswith("ED"):
@@ -368,7 +380,9 @@ def test_straus_kernels_match_plain(dev, name):
             want_i = H.ec_add(wc, H.ec_mul(wc, us[i], affine(P, i)),
                               H.ec_mul(wc, vs[i], affine(Q, i)))
         assert affine(got, i) == want_i, i
-    if c.fp_ctx.k == 8:          # kernels 5 and 8c are built at K = 8 only
+    if (point.instance_name("point_dbln_add", c) if cls is PrjPoint
+            else c.fp_ctx.k in edpoint.BUILT["ed_dbln_add"]):
+        # where kernel 5 (8c) is built: the joint-table Straus's points
         joint = scalar_mul.straus_double_mul_public(c, ut, P, vt, Q)
         ctx = c.fp_ctx
         for a, b in ((0, 2), (1, 2)):           # x/z and y/z agree
@@ -436,9 +450,9 @@ def test_ed_windowed_kernel_k14_matches_plain(dev):
 
 
 def test_ed_wrappers_refuse_other_k_and_a(dev):
-    """(K = 14, a = -1) and (K = 8, a = 1) raise on the card: the kernels
-    are built for (K = 8, a = -1) and (K = 14, a = 1) only; kernels 8c
-    and 6-ed for K = 8 only."""
+    """(K = 14, a = -1) and (K = 8, a = 1) raise on the card: kernels 8a,
+    8b, 8c, 7 and 6-ed are built for (K = 8, a = -1) and (K = 14, a = 1)
+    only."""
     e448 = edwards.get_edwards_curve("ED448")
     e25519 = edwards.get_edwards_curve("ED25519")
     m448 = EdwardsCurve("M1_448", e448.fp_ctx, -1, e448.d, 0, 1, e448.q, 4)
@@ -455,10 +469,11 @@ def test_ed_wrappers_refuse_other_k_and_a(dev):
                           device=dev)
         with pytest.raises(ValueError):
             megamul.windowed_mul(cv, tab, digs, ExtPoint)
-    one = e448.fp_ctx.from_ints([1, 2, 3], dev)
-    P = ExtPoint(one, one, one, one)
-    with pytest.raises(ValueError):                    # 8c: K = 8 only
-        edpoint.ed_dbln_add(e448, P, P, 2)
+    for cv in (m448, a1_8):                            # 8c
+        one = cv.fp_ctx.from_ints([1, 2, 3], dev)
+        P = ExtPoint(one, one, one, one)
+        with pytest.raises(ValueError, match="built for"):
+            edpoint.ed_dbln_add(cv, P, P, 2)
     tab = torch.zeros((16, 4, 14, 3), dtype=torch.int32, device=dev)
     digs = torch.zeros((112, 3), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="built for"):  # 6-ed: a = 1 at 14
@@ -468,17 +483,21 @@ def test_ed_wrappers_refuse_other_k_and_a(dev):
 # -- the wide instances refuse another a -------------------------------------
 
 def test_wide_wrappers_refuse_other_a(dev):
-    """An unbuilt (K, a) raises on the card: WEI448 (K = 14, generic a;
-    short Weierstrass is built at K = 14 for no a) and a = 0 at K = 10
-    (built for a = -3 and generic a); kernel 5 is built for K = 8 only.
-    The first-built wide C entry points refuse the other a, now built
-    under entry points of their own, themselves (cudaErrorInvalidValue)."""
+    """An unbuilt (K, a) raises on the card: a = -3 at K = 14 (short
+    Weierstrass is built at K = 14 for generic a only: WEI448) and a = 0
+    at K = 10 (built for a = -3 and generic a); kernel 5 is built at K = 8
+    and at the (K, a) of P-384, the 512-bit curves, P-521 and WEI448, so
+    not at K = 10 or K = 12 with generic a. The first-built wide C entry
+    points refuse the other a, now built under entry points of their own,
+    themselves (cudaErrorInvalidValue)."""
     import ctypes
     from libecc_tpu_torch.curves.shortw import ShortWCurve
-    w448 = params.get_curve("WEI448")                  # K = 14, generic a
+    w448 = params.get_curve("WEI448")
+    m3_448 = ShortWCurve("M3_448", w448.fp_ctx, -3, w448.b, 0, 1, w448.q)
     r320 = params.get_curve("BRAINPOOLP320R1")
     a0_320 = ShortWCurve("A0_320", r320.fp_ctx, 0, r320.b, 0, 1, r320.q)
-    for cv in (w448, a0_320):
+    assert point.a_kind(m3_448) == point.A_M3
+    for cv in (m3_448, a0_320):
         k = cv.fp_ctx.k
         one = cv.fp_ctx.from_ints([1, 2, 3], dev)
         P = PrjPoint(one, one, one)
@@ -504,16 +523,12 @@ def test_wide_wrappers_refuse_other_a(dev):
             point.ptr_array([*P, *P]), point.ptr_array(outs), 3,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         assert rc != 0
-    c = params.get_curve("BRAINPOOLP512R1")
-    one = c.fp_ctx.from_ints([1, 2, 3], dev)
-    P = PrjPoint(one, one, one)
-    with pytest.raises(ValueError):                    # 5: K = 8 only
-        point.point_dbln_add(c, P, P, 2)
-    c = params.get_curve("P-521")                      # 5: not at K = 17
-    one = c.fp_ctx.from_ints([1, 2, 3], dev)
-    P = PrjPoint(one, one, one)
-    with pytest.raises(ValueError, match="built for"):
-        point.point_dbln_add(c, P, P, 2)
+    for cv in (a0_320, params.get_curve("BRAINPOOLP320R1"),
+               params.get_curve("BRAINPOOLP384R1")):   # 5: not built
+        one = cv.fp_ctx.from_ints([1, 2, 3], dev)
+        P = PrjPoint(one, one, one)
+        with pytest.raises(ValueError, match="built for"):
+            point.point_dbln_add(cv, P, P, 2)
 
 
 def _wrong_a(struct, kind):
@@ -551,14 +566,28 @@ def _wrong_a(struct, kind):
      point.A_ZERO),
     ("straus_mul_k12_ga_w4", "straus_wide_alt", "BRAINPOOLP384R1", "w2",
      point.A_M3),
-    ("straus_mul_k17_w4", "straus_p521", "P-521", "w2", point.A_GENERIC)])
+    ("straus_mul_k17_w4", "straus_p521", "P-521", "w2", point.A_GENERIC),
+    ("point_add_k14_ga", "point_wei448", "WEI448", "add", point.A_M3),
+    ("point_dbl_k14_ga", "point_wei448", "WEI448", "dbl", point.A_ZERO),
+    ("point_dbln_add_k14_ga", "point_wei448", "WEI448", "dbln", point.A_M3),
+    ("point_dbln_add_k12", "point_wide", "P-384", "dbln", point.A_GENERIC),
+    ("point_dbln_add_k16", "point_wide", "BRAINPOOLP512R1", "dbln",
+     point.A_M3),
+    ("point_dbln_add_k16_m3", "point_wide_alt", "BRAINPOOLP512T1", "dbln",
+     point.A_GENERIC),
+    ("point_dbln_add_k17", "point_p521", "P-521", "dbln", point.A_ZERO),
+    ("windowed_mul_k14_ga_w4", "windowed_wei448", "WEI448", "w1",
+     point.A_M3),
+    ("straus_mul_k14_ga_w4", "straus_wei448", "WEI448", "w2", point.A_ZERO),
+    ("ed_dbln_add_k14", "edpoint", "ED448", "ed_dbln", edpoint.A_M1)])
 def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
                                                 model, wrong):
-    """Each C entry point at K = 17, each wide Straus one and the entry
-    points of the later (K, a) instances return cudaErrorInvalidValue for a
-    curve context whose a they are not built for, and launch nothing."""
+    """Each C entry point at K = 17, each wide Straus one, the entry
+    points of the later (K, a) instances and the wide kernel-5 and 8c ones
+    return cudaErrorInvalidValue for a curve context whose a they are not
+    built for, and launch nothing."""
     import ctypes
-    ed = model == "ed2"
+    ed = model.startswith("ed")
     c = (edwards.get_edwards_curve(curve) if ed
          else params.get_curve(curve))
     k = c.fp_ctx.k
@@ -573,6 +602,11 @@ def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
         rc = getattr(point._lib(stem), cname)(
             ctypes.byref(cs), point.ptr_array(ins), point.ptr_array(outs), 3,
             stream)
+    elif model in ("dbln", "ed_dbln"):
+        lib = edpoint._lib() if ed else point._lib(stem)
+        rc = getattr(lib, cname)(
+            ctypes.byref(cs), point.ptr_array([one] * 2 * ncoord),
+            point.ptr_array(outs), 3, 2, stream)
     else:
         npairs = 1 if model == "w1" else 2
         tab = torch.zeros((16, ncoord, k, 3), dtype=torch.int32, device=dev)

@@ -22,6 +22,8 @@ from libecc_tpu_torch.nn import core as nn
 from libecc_tpu_torch.ref import hostref as H
 from libecc_tpu_torch.sig import common, ecdsa, keys as K
 
+from test_torch_cofactor import small_order_point
+
 C = params.get_curve("P-256")
 P, Q = C.fp_ctx.p_int, C.q
 WC = H.WCurve(P, C.a, C.b, C.gx, C.gy, Q)
@@ -163,16 +165,27 @@ def test_key_import_validates():
                                        + C.gy.to_bytes(32, "big")],
                           device="cpu")
     assert isinstance(kb.pub, PrjPoint) and kb.pub.x.dtype == torch.int32
+    # WEI25519 (h = 8): the default import runs the q*P subgroup check,
+    # which passes a clean key and refuses G + T, T of small order
     c25519 = params.get_curve("WEI25519")
-    with pytest.raises(NotImplementedError):
-        K.pubkey_batch_from_affine_ints(c25519, "ECDSA", [c25519.gx],
-                                        [c25519.gy], device="cpu")
+    wc = H.WCurve(c25519.fp_ctx.p_int, c25519.a, c25519.b, c25519.gx,
+                  c25519.gy, c25519.q, c25519.h)
+    bad = H.ec_add(wc, (c25519.gx, c25519.gy), small_order_point(c25519))
+    kb = K.pubkey_batch_from_affine_ints(c25519, "ECDSA", [c25519.gx],
+                                         [c25519.gy], device="cpu")
+    assert kb.n == 1
+    with pytest.raises(ValueError, match=r"public key\(s\) \[1\]: point "
+                                         "not in the order-q subgroup"):
+        K.pubkey_batch_from_affine_ints(c25519, "ECDSA",
+                                        [c25519.gx, bad[0]],
+                                        [c25519.gy, bad[1]], device="cpu")
 
 
 def test_affine_accept_path_for_large_cofactor():
     """WEI25519 (h = 8, ceil(p/q) > 2) takes the affine accept test and
     the truncating hash-to-scalar (a 256-bit digest, a 253-bit q). The key
-    batch is built without the import check, which raises for h > 1."""
+    batch is built without the import checks (test_key_import_validates
+    runs the subgroup check)."""
     c = params.get_curve("WEI25519")
     p, q = c.fp_ctx.p_int, c.q
     wc = H.WCurve(p, c.a, c.b, c.gx, c.gy, q, c.h)

@@ -66,32 +66,11 @@ def digest(hash_name, m):
     return hashlib.new(hash_name.lower().replace("-", ""), m).digest()
 
 
-def sqrt_mod(v, p):
-    """A square root of v mod the odd prime p (Tonelli-Shanks), or None."""
-    v %= p
-    if v == 0:
-        return 0
-    if pow(v, (p - 1) // 2, p) != 1:
-        return None
-    q, s = p - 1, 0
-    while q % 2 == 0:
-        q, s = q // 2, s + 1
-    z = next(z for z in range(2, p) if pow(z, (p - 1) // 2, p) == p - 1)
-    m, c, t, r = s, pow(z, q, p), pow(v, q, p), pow(v, (q + 1) // 2, p)
-    while t != 1:
-        i, t2 = 0, t
-        while t2 != 1:
-            t2, i = t2 * t2 % p, i + 1
-        b = pow(c, 1 << (m - i - 1), p)
-        m, c, t, r = i, b * b % p, t * b * b % p, r * b % p
-    return r
-
-
 def _point_with_x(c, x0):
     """The first curve point whose x is x0 + t (t = 0, 1, ...)."""
     p = c.fp_ctx.p_int
     for t in range(1000):
-        y = sqrt_mod((x0 + t) ** 3 + c.a * (x0 + t) + c.b, p)
+        y = H.sqrt_mod((x0 + t) ** 3 + c.a * (x0 + t) + c.b, p)
         if y is not None:
             return t, (x0 + t, y)
     raise AssertionError("no point found")
