@@ -45,12 +45,11 @@ and drives these paths at batch 8192, bytes in:
 7. the cofactor > 1 curves (kernels 2-4 and 6 at K = 14, generic a, on
    WEI448): the q*P subgroup check of key import (WEI448 at batch 8192,
    timed; WEI25519, GOST 2012 256 A and 512 C at 256: keys d*G + T, T
-   of small order, are refused, lane for lane as the host oracle says;
-   GOST 2012 256 A's point of order 2 itself passes the check, a known
-   fault that the port shares with the JAX package), ECDSA verify through verify_batch_async (WEI448 under SHA-512 at
-   8192, timed; the others at 256), whose affine accept test reduces x(W)
-   mod q, and ecfsdsa_verify_batch (WEI448 at 8192, timed; the others at
-   256);
+   of small order, and the curve's point (x, 0) of order 2 itself are
+   refused, lane for lane as the host oracle says), ECDSA verify through
+   verify_batch_async (WEI448 under SHA-512 at 8192, timed; the others at
+   256), whose affine accept test reduces x(W) mod q, and
+   ecfsdsa_verify_batch (WEI448 at 8192, timed; the others at 256);
 8. the joint-table Straus straus_double_mul_public against the
    separate-table one, on every curve above whose (K, a) has kernel 5 or
    8c built: P-256 and Ed25519 (K = 8), P-384, BrainpoolP512r1, GOST512,
@@ -178,6 +177,7 @@ COF_CURVES = {"WEI448": ("WEI448", "SHA512"),
 COF_BATCH = 256
 COF_BAD = (3, 77, 130, 255)
 COF_BAD_FULL = (4097, 8191)
+COF_ORDER2 = 200        # the lane whose key is the point (x, 0) of order 2
 # this script's directory: the root of a checkout (__file__ is unset when
 # the script is piped on standard input; the directory is then the cwd)
 HERE = os.path.dirname(os.path.abspath(globals().get("__file__",
@@ -1985,6 +1985,8 @@ def run(torch) -> int:
         pts = list(fx.pubs)
         for j, i in enumerate(bad):
             pts[i] = H.ec_add(cw, pts[i], cof_T[cname][j % 3])
+        pts[COF_ORDER2] = H.ec_order2_point(cw)
+        bad = sorted(bad + [COF_ORDER2])
         want_ok = np.ones(n, bool)
         want_ok[bad] = False
         for i in bad + [0, 1, 70, n - 1]:
@@ -2011,8 +2013,9 @@ def run(torch) -> int:
             _check(keys_path[name] >= 1, f"kernel {name} was not launched "
                                          f"on the {label} key import")
         print(f"{label} key import (batch {n}): the q*P check passes the "
-              f"keys d*G and refuses the {len(bad)} keys d*G + T, T of "
-              "small order, lane for lane as the host oracle does; launches "
+              f"keys d*G and refuses the {len(bad) - 1} keys d*G + T, T of "
+              f"small order, and the point of order 2 (lane {COF_ORDER2}), "
+              "lane for lane as the host oracle does; launches "
               + json.dumps({k_: v for k_, v in keys_path.items() if v}))
         reset()
         acc = ecdsa.verify_batch_async(fx.kb, fx.msgs, fx.sigs, hname)

@@ -7,12 +7,16 @@
 // with the plain PyTorch versions and "is zero" is a limb compare.
 //
 // These __device__ functions are kernel 1's body and the field layer of
-// kernels 2-4 (point.cuh, windowed.cu). They replace the TPU's relaxed
-// 15-bit-limb arithmetic (libecc_tpu/ops/pallas/mont.py:_mont_body_refs),
-// whose float32 exact-carry trick exists for the TPU's vector unit; Hopper
-// has 32x32->64 integer multiplies and carries, so a product here is a
-// schoolbook (or squaring) product followed by a word-serial Montgomery
-// reduction and one conditional subtraction.
+// the kernels where one thread carries a lane: the Edwards kernels
+// (edpoint.cuh) and, through ThreadField, kernels 2, 3, 5 and kernels 4
+// and 6 at K <= 10 (point.cuh, windowed.cuh). groupfield.cuh holds the
+// field where a group of threads carries a lane (kernels 4 and 6 at
+// K >= 12). They replace the TPU's relaxed 15-bit-limb arithmetic
+// (libecc_tpu/ops/pallas/mont.py:_mont_body_refs), whose float32
+// exact-carry trick exists for the TPU's vector unit; Hopper has 32x32->64
+// integer multiplies and carries, so a product here is a schoolbook (or
+// squaring) product followed by a word-serial Montgomery reduction and one
+// conditional subtraction.
 #pragma once
 
 #include <cstdint>
@@ -242,5 +246,67 @@ __device__ __forceinline__ Fe<K> fmul_const(const Fe<K>& a,
                                             const FieldCtx<K>& f) {
   return fmul<K>(a, fe_const<K>(c), f);
 }
+
+// Two field elements (the results of a field type's mul2).
+template <class E>
+struct Two {
+  E a, b;
+};
+
+// The one-thread field: a lane's element is an Fe<K> in one thread, and
+// every operation is the free function above. The point formulas of
+// point.cuh are templates over a field type with this interface (E; mul,
+// sqr and the pairs mul2, sqr2, sqr_mul; add, sub; the curve's a, a^2,
+// 3b and one; zero, is_zero, select; load; kLimbs = K); groupfield.cuh's
+// GroupField is the other one.
+template <int K>
+struct ThreadField {
+  using E = Fe<K>;
+  static constexpr int kLimbs = K;
+  const CurveCtx<K>& C;
+
+  __device__ __forceinline__ explicit ThreadField(const CurveCtx<K>& c)
+      : C(c) {}
+  __device__ __forceinline__ E mul(const E& a, const E& b) const {
+    return fmul<K>(a, b, C.f);
+  }
+  __device__ __forceinline__ E sqr(const E& a) const {
+    return fsqr<K>(a, C.f);
+  }
+  // two independent products, squares or a square and a product
+  __device__ __forceinline__ Two<E> mul2(const E& a, const E& b, const E& c,
+                                         const E& d) const {
+    return {fmul<K>(a, b, C.f), fmul<K>(c, d, C.f)};
+  }
+  __device__ __forceinline__ Two<E> sqr2(const E& a, const E& c) const {
+    return {fsqr<K>(a, C.f), fsqr<K>(c, C.f)};
+  }
+  __device__ __forceinline__ Two<E> sqr_mul(const E& a, const E& c,
+                                            const E& d) const {
+    return {fsqr<K>(a, C.f), fmul<K>(c, d, C.f)};
+  }
+  __device__ __forceinline__ E add(const E& a, const E& b) const {
+    return fadd<K>(a, b, C.f);
+  }
+  __device__ __forceinline__ E sub(const E& a, const E& b) const {
+    return fsub<K>(a, b, C.f);
+  }
+  __device__ __forceinline__ E a() const { return fe_const<K>(C.a); }
+  __device__ __forceinline__ E a2() const { return fe_const<K>(C.a2); }
+  __device__ __forceinline__ E b3() const { return fe_const<K>(C.b3); }
+  __device__ __forceinline__ E one() const { return fe_const<K>(C.one); }
+  __device__ __forceinline__ E zero() const { return fe_zero<K>(); }
+  __device__ __forceinline__ bool is_zero(const E& a) const {
+    return ecc::is_zero<K>(a);
+  }
+  __device__ __forceinline__ E select(bool c, const E& a,
+                                      const E& b) const {
+    return fe_select<K>(c, a, b);
+  }
+  __device__ __forceinline__ E load(const uint32_t* __restrict__ base,
+                                    long long n, long long lane) const {
+    return load_fe<K>(base, n, lane);
+  }
+};
 
 }  // namespace ecc

@@ -18,197 +18,200 @@
 
 namespace ecc {
 
-template <int K>
-struct Pt {
-  Fe<K> x, y, z;
+// A point over a field type's element E (Fe<K> for ThreadField, a
+// thread's slice for GroupField).
+template <class E>
+struct PtOf {
+  E x, y, z;
 };
 
 template <int K>
-__device__ __forceinline__ Fe<K> ftriple(const Fe<K>& a,
-                                         const FieldCtx<K>& f) {
-  return fadd<K>(fadd<K>(a, a, f), a, f);
+using Pt = PtOf<Fe<K>>;
+
+// The formulas below are templates over a field type F (field.cuh's
+// ThreadField or groupfield.cuh's GroupField): one text for both, so the
+// group loop of kernels 4 and 6 runs the same sequence of operations as
+// kernels 2, 3 and 5.
+template <class F>
+__device__ __forceinline__ typename F::E ftriple(const F& f,
+                                                 const typename F::E& a) {
+  return f.add(f.add(a, a), a);
 }
 
 // Complete addition, RCB 2015 Alg. 1 in the reference's three layers
-// (6 + 2 + 6 products for a = -3 and a = 0).
-template <int K, int AK>
-__device__ __forceinline__ Pt<K> rcb_add(const Pt<K>& P, const Pt<K>& Q,
-                                         const CurveCtx<K>& C) {
-  const FieldCtx<K>& f = C.f;
-  const Fe<K> t0 = fmul<K>(P.x, Q.x, f);
-  const Fe<K> t1 = fmul<K>(P.y, Q.y, f);
-  const Fe<K> t2 = fmul<K>(P.z, Q.z, f);
-  const Fe<K> m3 = fmul<K>(fadd<K>(P.x, P.y, f), fadd<K>(Q.x, Q.y, f), f);
-  const Fe<K> m4 = fmul<K>(fadd<K>(P.x, P.z, f), fadd<K>(Q.x, Q.z, f), f);
-  const Fe<K> m5 = fmul<K>(fadd<K>(P.y, P.z, f), fadd<K>(Q.y, Q.z, f), f);
-  const Fe<K> t3 = fsub<K>(m3, fadd<K>(t0, t1, f), f);
-  const Fe<K> t4 = fsub<K>(m4, fadd<K>(t0, t2, f), f);
-  const Fe<K> t5 = fsub<K>(m5, fadd<K>(t1, t2, f), f);
-  const Fe<K> b3t2 = fmul_const<K>(t2, C.b3, f);
-  const Fe<K> b3t4 = fmul_const<K>(t4, C.b3, f);
-  Fe<K> X3, Z3, t1n, t4n;
+// (6 + 2 + 6 products for a = -3 and a = 0). Independent products are
+// asked for in pairs (mul2), which the group field computes together.
+template <int AK, class F, class E = typename F::E>
+__device__ __forceinline__ PtOf<E> rcb_add(const F& f, const PtOf<E>& P,
+                                           const PtOf<E>& Q) {
+  const Two<E> t01 = f.mul2(P.x, Q.x, P.y, Q.y);
+  const Two<E> t2m3 = f.mul2(P.z, Q.z, f.add(P.x, P.y), f.add(Q.x, Q.y));
+  const Two<E> m45 = f.mul2(f.add(P.x, P.z), f.add(Q.x, Q.z),
+                            f.add(P.y, P.z), f.add(Q.y, Q.z));
+  const E t0 = t01.a, t1 = t01.b, t2 = t2m3.a;
+  const E t3 = f.sub(t2m3.b, f.add(t0, t1));
+  const E t4 = f.sub(m45.a, f.add(t0, t2));
+  const E t5 = f.sub(m45.b, f.add(t1, t2));
+  const Two<E> b3t = f.mul2(t2, f.b3(), t4, f.b3());
+  const E b3t2 = b3t.a, b3t4 = b3t.b;
+  E X3, Z3, t1n, t4n;
   if (AK == A_ZERO) {
     Z3 = b3t2;
-    X3 = fsub<K>(t1, Z3, f);
-    Z3 = fadd<K>(t1, Z3, f);
-    t1n = ftriple<K>(t0, f);
+    X3 = f.sub(t1, Z3);
+    Z3 = f.add(t1, Z3);
+    t1n = ftriple(f, t0);
     t4n = b3t4;
   } else if (AK == A_M3) {
-    const Fe<K> m4_3 = ftriple<K>(m4, f);
-    const Fe<K> s02_3 = ftriple<K>(fadd<K>(t0, t2, f), f);
-    const Fe<K> t0_3 = ftriple<K>(t0, f);
-    const Fe<K> t2_3 = ftriple<K>(t2, f);
-    const Fe<K> t2_2 = fadd<K>(t2, t2, f);
-    const Fe<K> t2_4 = fadd<K>(t2_2, t2_2, f);
-    const Fe<K> t2_9 = fadd<K>(fadd<K>(t2_4, t2_4, f), t2, f);
-    Z3 = fadd<K>(fsub<K>(b3t2, m4_3, f), s02_3, f);
-    X3 = fsub<K>(fadd<K>(fsub<K>(t1, b3t2, f), m4_3, f), s02_3, f);
-    Z3 = fadd<K>(t1, Z3, f);
-    t1n = fsub<K>(t0_3, t2_3, f);
-    t4n = fsub<K>(b3t4, fadd<K>(t0_3, t2_9, f), f);
+    const E m4_3 = ftriple(f, m45.a);
+    const E s02_3 = ftriple(f, f.add(t0, t2));
+    const E t0_3 = ftriple(f, t0);
+    const E t2_3 = ftriple(f, t2);
+    const E t2_2 = f.add(t2, t2);
+    const E t2_4 = f.add(t2_2, t2_2);
+    const E t2_9 = f.add(f.add(t2_4, t2_4), t2);
+    Z3 = f.add(f.sub(b3t2, m4_3), s02_3);
+    X3 = f.sub(f.add(f.sub(t1, b3t2), m4_3), s02_3);
+    Z3 = f.add(t1, Z3);
+    t1n = f.sub(t0_3, t2_3);
+    t4n = f.sub(b3t4, f.add(t0_3, t2_9));
   } else {
-    const Fe<K> at4 = fmul_const<K>(t4, C.a, f);
-    const Fe<K> at2 = fmul_const<K>(t2, C.a, f);
-    const Fe<K> at0 = fmul_const<K>(t0, C.a, f);
-    const Fe<K> a2t2 = fmul_const<K>(t2, C.a2, f);
-    Z3 = fadd<K>(at4, b3t2, f);
-    X3 = fsub<K>(t1, Z3, f);
-    Z3 = fadd<K>(t1, Z3, f);
-    t1n = fadd<K>(ftriple<K>(t0, f), at2, f);
-    t4n = fadd<K>(b3t4, fsub<K>(at0, a2t2, f), f);
+    const Two<E> at42 = f.mul2(t4, f.a(), t2, f.a());
+    const Two<E> at0a2t2 = f.mul2(t0, f.a(), t2, f.a2());
+    Z3 = f.add(at42.a, b3t2);
+    X3 = f.sub(t1, Z3);
+    Z3 = f.add(t1, Z3);
+    t1n = f.add(ftriple(f, t0), at42.b);
+    t4n = f.add(b3t4, f.sub(at0a2t2.a, at0a2t2.b));
   }
-  const Fe<K> y3a = fmul<K>(X3, Z3, f);
-  const Fe<K> y3b = fmul<K>(t1n, t4n, f);
-  const Fe<K> x3b = fmul<K>(t5, t4n, f);
-  const Fe<K> x3a = fmul<K>(t3, X3, f);
-  const Fe<K> z3b = fmul<K>(t3, t1n, f);
-  const Fe<K> z3a = fmul<K>(t5, Z3, f);
-  Pt<K> R;
-  R.x = fsub<K>(x3a, x3b, f);
-  R.y = fadd<K>(y3a, y3b, f);
-  R.z = fadd<K>(z3a, z3b, f);
+  const Two<E> y3 = f.mul2(X3, Z3, t1n, t4n);
+  const Two<E> x3 = f.mul2(t3, X3, t5, t4n);
+  const Two<E> z3 = f.mul2(t5, Z3, t3, t1n);
+  PtOf<E> R;
+  R.x = f.sub(x3.a, x3.b);
+  R.y = f.add(y3.a, y3.b);
+  R.z = f.add(z3.a, z3.b);
   return R;
 }
 
 // Complete doubling, RCB 2015 Alg. 3 (3 squares, 3 + 2 + 5 products).
-template <int K, int AK>
-__device__ __forceinline__ Pt<K> rcb_dbl(const Pt<K>& P,
-                                         const CurveCtx<K>& C) {
-  const FieldCtx<K>& f = C.f;
-  const Fe<K> t0 = fsqr<K>(P.x, f);
-  const Fe<K> t1 = fsqr<K>(P.y, f);
-  const Fe<K> t2 = fsqr<K>(P.z, f);
-  const Fe<K> xy = fmul<K>(P.x, P.y, f);
-  const Fe<K> xz = fmul<K>(P.x, P.z, f);
-  const Fe<K> yz = fmul<K>(P.y, P.z, f);
-  const Fe<K> t3 = fadd<K>(xy, xy, f);
-  const Fe<K> Z3w = fadd<K>(xz, xz, f);
-  const Fe<K> b3t2 = fmul_const<K>(t2, C.b3, f);
-  const Fe<K> b3z3 = fmul_const<K>(Z3w, C.b3, f);
-  Fe<K> X3w, Y3w, t3n, t0n;
+template <int AK, class F, class E = typename F::E>
+__device__ __forceinline__ PtOf<E> rcb_dbl(const F& f, const PtOf<E>& P) {
+  const Two<E> t01 = f.sqr2(P.x, P.y);
+  const Two<E> t2xy = f.sqr_mul(P.z, P.x, P.y);
+  const Two<E> xzyz = f.mul2(P.x, P.z, P.y, P.z);
+  const E t0 = t01.a, t1 = t01.b, t2 = t2xy.a;
+  const E t3 = f.add(t2xy.b, t2xy.b);
+  const E Z3w = f.add(xzyz.a, xzyz.a);
+  const Two<E> b3t = f.mul2(t2, f.b3(), Z3w, f.b3());
+  const E b3t2 = b3t.a, b3z3 = b3t.b;
+  E X3w, Y3w, t3n, t0n;
   if (AK == A_ZERO) {
     Y3w = b3t2;
-    X3w = fsub<K>(t1, Y3w, f);
-    Y3w = fadd<K>(t1, Y3w, f);
+    X3w = f.sub(t1, Y3w);
+    Y3w = f.add(t1, Y3w);
     t3n = b3z3;
-    t0n = ftriple<K>(t0, f);
+    t0n = ftriple(f, t0);
   } else if (AK == A_M3) {
-    const Fe<K> z3x3 = ftriple<K>(Z3w, f);
-    const Fe<K> t0_3 = ftriple<K>(t0, f);
-    const Fe<K> t2_3 = ftriple<K>(t2, f);
-    const Fe<K> t2_2 = fadd<K>(t2, t2, f);
-    const Fe<K> t2_4 = fadd<K>(t2_2, t2_2, f);
-    const Fe<K> t2_9 = fadd<K>(fadd<K>(t2_4, t2_4, f), t2, f);
-    Y3w = fsub<K>(b3t2, z3x3, f);
-    X3w = fadd<K>(fsub<K>(t1, b3t2, f), z3x3, f);
-    Y3w = fadd<K>(t1, Y3w, f);
-    t3n = fsub<K>(b3z3, fadd<K>(t0_3, t2_9, f), f);
-    t0n = fsub<K>(t0_3, t2_3, f);
+    const E z3x3 = ftriple(f, Z3w);
+    const E t0_3 = ftriple(f, t0);
+    const E t2_3 = ftriple(f, t2);
+    const E t2_2 = f.add(t2, t2);
+    const E t2_4 = f.add(t2_2, t2_2);
+    const E t2_9 = f.add(f.add(t2_4, t2_4), t2);
+    Y3w = f.sub(b3t2, z3x3);
+    X3w = f.add(f.sub(t1, b3t2), z3x3);
+    Y3w = f.add(t1, Y3w);
+    t3n = f.sub(b3z3, f.add(t0_3, t2_9));
+    t0n = f.sub(t0_3, t2_3);
   } else {
-    const Fe<K> az3 = fmul_const<K>(Z3w, C.a, f);
-    const Fe<K> at2 = fmul_const<K>(t2, C.a, f);
-    const Fe<K> at0 = fmul_const<K>(t0, C.a, f);
-    const Fe<K> a2t2 = fmul_const<K>(t2, C.a2, f);
-    Y3w = fadd<K>(az3, b3t2, f);
-    X3w = fsub<K>(t1, Y3w, f);
-    Y3w = fadd<K>(t1, Y3w, f);
-    t3n = fadd<K>(fsub<K>(at0, a2t2, f), b3z3, f);
-    t0n = fadd<K>(ftriple<K>(t0, f), at2, f);
+    const Two<E> az3at2 = f.mul2(Z3w, f.a(), t2, f.a());
+    const Two<E> at0a2t2 = f.mul2(t0, f.a(), t2, f.a2());
+    Y3w = f.add(az3at2.a, b3t2);
+    X3w = f.sub(t1, Y3w);
+    Y3w = f.add(t1, Y3w);
+    t3n = f.add(f.sub(at0a2t2.a, at0a2t2.b), b3z3);
+    t0n = f.add(ftriple(f, t0), az3at2.b);
   }
-  const Fe<K> t2d = fadd<K>(yz, yz, f);
-  const Fe<K> y3m = fmul<K>(X3w, Y3w, f);
-  const Fe<K> y3t = fmul<K>(t0n, t3n, f);
-  const Fe<K> x3t = fmul<K>(t2d, t3n, f);
-  const Fe<K> x3m = fmul<K>(t3, X3w, f);
-  const Fe<K> z3m = fmul<K>(t2d, t1, f);
-  Pt<K> R;
-  R.x = fsub<K>(x3m, x3t, f);
-  R.y = fadd<K>(y3m, y3t, f);
-  const Fe<K> z2 = fadd<K>(z3m, z3m, f);
-  R.z = fadd<K>(z2, z2, f);
+  const E t2d = f.add(xzyz.b, xzyz.b);
+  const Two<E> y3 = f.mul2(X3w, Y3w, t0n, t3n);
+  const Two<E> x3 = f.mul2(t2d, t3n, t3, X3w);
+  const E z3m = f.mul(t2d, t1);
+  PtOf<E> R;
+  R.x = f.sub(x3.b, x3.a);
+  R.y = f.add(y3.a, y3.b);
+  const E z2 = f.add(z3m, z3m);
+  R.z = f.add(z2, z2);
   return R;
 }
 
 // homogeneous -> Jacobian (X*Z, Y*Z^2, Z); lanes with Z = 0 take the
 // representative (1, 1, 0), whose doubling orbit is itself.
-template <int K>
-__device__ __forceinline__ Pt<K> to_jac(const Pt<K>& P,
-                                        const CurveCtx<K>& C) {
-  const FieldCtx<K>& f = C.f;
-  const bool inf = is_zero<K>(P.z);
-  const Fe<K> zz = fsqr<K>(P.z, f);
-  const Fe<K> one = fe_const<K>(C.one);
-  Pt<K> J;
-  J.x = fe_select<K>(inf, one, fmul<K>(P.x, P.z, f));
-  J.y = fe_select<K>(inf, one, fmul<K>(P.y, zz, f));
+template <class F, class E = typename F::E>
+__device__ __forceinline__ PtOf<E> to_jac(const F& f, const PtOf<E>& P) {
+  const bool inf = f.is_zero(P.z);
+  const Two<E> zz_xz = f.sqr_mul(P.z, P.x, P.z);
+  const E one = f.one();
+  PtOf<E> J;
+  J.x = f.select(inf, one, zz_xz.b);
+  J.y = f.select(inf, one, f.mul(P.y, zz_xz.a));
   J.z = P.z;
   return J;
 }
 
-// One Jacobian doubling, dbl-2001-b (3M + 5S for a = -3).
-template <int K, int AK>
-__device__ __forceinline__ Pt<K> jac_dbl(const Pt<K>& J,
-                                         const CurveCtx<K>& C) {
-  const FieldCtx<K>& f = C.f;
-  const Fe<K> delta = fsqr<K>(J.z, f);
-  const Fe<K> gamma = fsqr<K>(J.y, f);
-  const Fe<K> beta = fmul<K>(J.x, gamma, f);
-  Fe<K> alpha;
+// One Jacobian doubling, dbl-2001-b (3M + 5S for a = -3): its products in
+// pairs where the dependencies allow (the squares delta, gamma and
+// (Y + Z)^2 first, then what needs them).
+template <int AK, class F, class E = typename F::E>
+__device__ __forceinline__ PtOf<E> jac_dbl(const F& f, const PtOf<E>& J) {
+  const Two<E> dg = f.sqr2(J.z, J.y);
+  const E delta = dg.a, gamma = dg.b;
+  E alpha, beta, zz, g2;
   if (AK == A_M3) {
-    alpha = ftriple<K>(fmul<K>(fsub<K>(J.x, delta, f),
-                               fadd<K>(J.x, delta, f), f), f);
+    const Two<E> ba = f.mul2(J.x, gamma, f.sub(J.x, delta),
+                             f.add(J.x, delta));
+    const Two<E> zg = f.sqr2(f.add(J.y, J.z), gamma);
+    beta = ba.a;
+    alpha = ftriple(f, ba.b);
+    zz = zg.a;
+    g2 = zg.b;
   } else if (AK == A_ZERO) {
-    alpha = ftriple<K>(fsqr<K>(J.x, f), f);
+    const Two<E> zb = f.sqr_mul(f.add(J.y, J.z), J.x, gamma);
+    const Two<E> xg = f.sqr2(J.x, gamma);
+    zz = zb.a;
+    beta = zb.b;
+    alpha = ftriple(f, xg.a);
+    g2 = xg.b;
   } else {
-    const Fe<K> ad2 = fmul_const<K>(fsqr<K>(delta, f), C.a, f);
-    alpha = fadd<K>(ftriple<K>(fsqr<K>(J.x, f), f), ad2, f);
+    const Two<E> zb = f.sqr_mul(f.add(J.y, J.z), J.x, gamma);
+    const Two<E> xd = f.sqr2(J.x, delta);
+    const Two<E> ga = f.sqr_mul(gamma, xd.b, f.a());
+    zz = zb.a;
+    beta = zb.b;
+    g2 = ga.a;
+    alpha = f.add(ftriple(f, xd.a), ga.b);
   }
-  const Fe<K> alpha_sq = fsqr<K>(alpha, f);
-  const Fe<K> b2 = fadd<K>(beta, beta, f);
-  const Fe<K> b4 = fadd<K>(b2, b2, f);
-  const Fe<K> b8 = fadd<K>(b4, b4, f);
-  Pt<K> R;
-  R.x = fsub<K>(alpha_sq, b8, f);
-  R.z = fsub<K>(fsqr<K>(fadd<K>(J.y, J.z, f), f), fadd<K>(gamma, delta, f),
-                f);
-  const Fe<K> t = fsub<K>(fadd<K>(b8, b4, f), alpha_sq, f);
-  const Fe<K> g2 = fsqr<K>(gamma, f);
-  const Fe<K> g4 = fadd<K>(fadd<K>(g2, g2, f), fadd<K>(g2, g2, f), f);
-  const Fe<K> g8 = fadd<K>(g4, g4, f);
-  R.y = fsub<K>(fmul<K>(alpha, t, f), g8, f);
+  const E alpha_sq = f.sqr(alpha);
+  const E b2 = f.add(beta, beta);
+  const E b4 = f.add(b2, b2);
+  const E b8 = f.add(b4, b4);
+  PtOf<E> R;
+  R.x = f.sub(alpha_sq, b8);
+  R.z = f.sub(zz, f.add(gamma, delta));
+  const E t = f.sub(f.add(b8, b4), alpha_sq);
+  const E g4 = f.add(f.add(g2, g2), f.add(g2, g2));
+  const E g8 = f.add(g4, g4);
+  R.y = f.sub(f.mul(alpha, t), g8);
   return R;
 }
 
 // Jacobian -> homogeneous (Xj*Zj : Yj : Zj^3); (1, 1, 0) lands on (0 : 1 : 0).
-template <int K>
-__device__ __forceinline__ Pt<K> from_jac(const Pt<K>& J,
-                                          const CurveCtx<K>& C) {
-  const FieldCtx<K>& f = C.f;
-  const Fe<K> zz = fsqr<K>(J.z, f);
-  Pt<K> P;
-  P.x = fmul<K>(J.x, J.z, f);
+template <class F, class E = typename F::E>
+__device__ __forceinline__ PtOf<E> from_jac(const F& f, const PtOf<E>& J) {
+  const Two<E> zz_xz = f.sqr_mul(J.z, J.x, J.z);
+  PtOf<E> P;
+  P.x = zz_xz.b;
   P.y = J.y;
-  P.z = fmul<K>(zz, J.z, f);
+  P.z = f.mul(zz_xz.a, J.z);
   return P;
 }
 
@@ -252,9 +255,10 @@ point_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
                  long long n) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
+  const ThreadField<K> f(C);
   const Pt<K> P = load_pt<K>(x1, y1, z1, n, lane);
   const Pt<K> Q = load_pt<K>(x2, y2, z2, n, lane);
-  store_pt<K>(x3, y3, z3, n, lane, rcb_add<K, AK>(P, Q, C));
+  store_pt<K>(x3, y3, z3, n, lane, rcb_add<AK>(f, P, Q));
 }
 
 // Kernel 5 (public points only, as the reference's block): to_jac with
@@ -273,11 +277,12 @@ point_dbln_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
                       uint32_t* __restrict__ z3, long long n, int ndbl) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  Pt<K> J = to_jac<K>(load_pt<K>(x1, y1, z1, n, lane), C);
+  const ThreadField<K> f(C);
+  Pt<K> J = to_jac(f, load_pt<K>(x1, y1, z1, n, lane));
 #pragma unroll 1
-  for (int i = 0; i < ndbl; ++i) J = jac_dbl<K, AK>(J, C);
+  for (int i = 0; i < ndbl; ++i) J = jac_dbl<AK>(f, J);
   const Pt<K> T = load_pt<K>(x2, y2, z2, n, lane);
-  store_pt<K>(x3, y3, z3, n, lane, rcb_add<K, AK>(from_jac<K>(J, C), T, C));
+  store_pt<K>(x3, y3, z3, n, lane, rcb_add<AK>(f, from_jac(f, J), T));
 }
 
 template <int K, int AK>
@@ -289,8 +294,9 @@ point_dbl_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
                  long long n) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
+  const ThreadField<K> f(C);
   store_pt<K>(x3, y3, z3, n, lane,
-              rcb_dbl<K, AK>(load_pt<K>(x1, y1, z1, n, lane), C));
+              rcb_dbl<AK>(f, load_pt<K>(x1, y1, z1, n, lane)));
 }
 
 constexpr int kPointThreads = 256;

@@ -13,14 +13,14 @@
 // Bound on the H100: integer-multiply issue. Per window 22 squares and 44
 // products (kernel 4's 22 and 30, one complete add more), about 4.6 ms of
 // the card's multiply-add issue at 8192 lanes; chip_smoke.py computes the
-// bound of each run. Design: kernel 4's, the pair loop rolled. Kernel 4
-// at K = 17 already spills 228 bytes; the second table adds a pointer and
-// a digit read, not code, and the spill is what ptxas -v reports
-// (chip_smoke.py prints it). Right first; the spills are later work.
+// bound of each run. Design: kernel 4's (windowed_p521.cu), the group
+// loop with TPI = 4 threads a lane, 5 limbs a thread (the last thread's
+// top three zero), the pair loop rolled: the second table adds a pointer
+// and a digit read, not code.
 #include "windowed.cuh"
 
 extern "C" {
 
-ECC_W_ENTRY_POINT(straus_mul_k17_w4, 17, 2, ecc::A_M3)
+ECC_WG_ENTRY_POINT(straus_mul_k17_w4, 17, 2, ecc::A_M3)
 
 }  // extern "C"

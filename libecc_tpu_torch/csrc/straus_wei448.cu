@@ -10,12 +10,13 @@
 //
 // Bound on the H100: integer-multiply issue. Per window 30 squares and 52
 // products, about 3.2 ms of the card's multiply-add issue at 8192 lanes;
-// chip_smoke.py computes the bound of each run. Design: kernel 4's, the
-// pair loop rolled; the registers spill as kernel 4's do (ptxas -v).
+// chip_smoke.py computes the bound of each run. Design: kernel 4's
+// (windowed_wei448.cu), the group loop with TPI = 4 threads a lane, 4
+// limbs a thread (the last thread's top two zero), the pair loop rolled.
 #include "windowed.cuh"
 
 extern "C" {
 
-ECC_W_ENTRY_POINT(straus_mul_k14_ga_w4, 14, 2, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(straus_mul_k14_ga_w4, 14, 2, ecc::A_GENERIC)
 
 }  // extern "C"

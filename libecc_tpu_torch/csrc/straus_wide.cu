@@ -19,32 +19,15 @@
 // 52 for generic a (two squares more a doubling, the products by a and
 // a^2 in each add): about 1.7 ms at K = 12 and 4.9 ms at K = 16 of the
 // card's multiply-add issue at 8192 lanes; chip_smoke.py computes the
-// bound of each run. Design: kernel 4's, the pair loop rolled so that the
-// second table adds a pointer and no code. At K = 16 the accumulator, the
-// entry and the temporaries pass the 255 registers a thread may hold and
-// the compiler spills (ptxas -v, chip_smoke.py prints it); right first.
+// bound of each run. Design: kernel 4's (windowed_wide.cu), the group
+// loop with TPI = 4 threads a lane (3 limbs a thread at K = 12, 4 at
+// K = 16), the pair loop rolled so that the second table adds a pointer
+// and no code.
 #include "windowed.cuh"
 
 extern "C" {
 
-// digits = (u's, v's): int32[nwin][n] each (MSW first); tables = (P's,
-// Q's): uint32[16][3][12][n] each; out: x, y, z (each uint32[12][n]).
-// a = -3 only: another a_kind returns cudaErrorInvalidValue.
-int straus_mul_k12_w4(const ecc::CurveCtx<12>* C,
-                      const int32_t* const* digits, int nwin,
-                      const uint32_t* const* tables, uint32_t* const* out,
-                      long long n, void* stream) {
-  return ecc::launch_w<12, 2, ecc::A_M3>(C, digits, nwin, tables, out, n,
-                                         stream);
-}
-
-// As above at K = 16 (uint32[16][3][16][n] tables); generic a only.
-int straus_mul_k16_w4(const ecc::CurveCtx<16>* C,
-                      const int32_t* const* digits, int nwin,
-                      const uint32_t* const* tables, uint32_t* const* out,
-                      long long n, void* stream) {
-  return ecc::launch_w<16, 2, ecc::A_GENERIC>(C, digits, nwin, tables, out,
-                                              n, stream);
-}
+ECC_WG_ENTRY_POINT(straus_mul_k12_w4, 12, 2, ecc::A_M3)
+ECC_WG_ENTRY_POINT(straus_mul_k16_w4, 16, 2, ecc::A_GENERIC)
 
 }  // extern "C"

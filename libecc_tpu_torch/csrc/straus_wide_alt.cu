@@ -15,12 +15,13 @@
 // products for generic a, 22 and 44 for a = -3: about 2.1 ms of the
 // card's multiply-add issue at 8192 lanes at K = 12 and 4.0 ms at K = 16;
 // chip_smoke.py computes the bound of each run. Design: kernel 4's, the
-// pair loop rolled; the registers spill at K = 16 (ptxas -v).
+// group loop with TPI = 4 threads a lane (3 limbs a thread at K = 12, 4
+// at K = 16), the pair loop rolled.
 #include "windowed.cuh"
 
 extern "C" {
 
-ECC_W_ENTRY_POINT(straus_mul_k12_ga_w4, 12, 2, ecc::A_GENERIC)
-ECC_W_ENTRY_POINT(straus_mul_k16_m3_w4, 16, 2, ecc::A_M3)
+ECC_WG_ENTRY_POINT(straus_mul_k12_ga_w4, 12, 2, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(straus_mul_k16_m3_w4, 16, 2, ecc::A_M3)
 
 }  // extern "C"

@@ -16,10 +16,9 @@
 // with u's digit, then Q's table with v's digit). The accumulator stays in
 // registers across all windows; only the tables and the digits are read
 // from device memory and the result written once. The loop is a template
-// over K in windowed.cuh: built here at K = 8 for every a, in
-// windowed_wide.cu for kernel 4 at K = 12 (a = -3) and K = 16 (generic a),
-// in windowed_p521.cu for kernel 4 at K = 17 (a = -3, P-521) and in
-// straus_wide.cu for kernel 6 at K = 12 and K = 16.
+// over K in windowed.cuh, built here at K = 8 for every a; windowed.cuh
+// lists the other instances. At K >= 12 a group of four threads carries a
+// lane (windowed.cuh's group loop, groupfield.cuh).
 //
 // Twisted Edwards (kernels 7 and 6-ed, extended): the accumulator starts
 // at (0 : 1 : 1 : 0); per window, most significant first, w
@@ -50,14 +49,17 @@
 // at a = 1, whose add takes one product more), plus the table bytes:
 // each window reads one 3K- or 4K-word entry per pair and lane, 64 x 96 or
 // 64 x 128 bytes per pair at K = 8, so table traffic is small beside the
-// arithmetic. Design: one thread per lane, accumulator and all formula
-// temporaries in registers, table entries read straight from device
-// memory (coalesced across lanes of a warp for one limb). The pair loop
-// stays rolled so that the second pair adds no code and few registers.
-// At K = 14 an extended point is 56 registers, so the accumulator, the
-// entry and the formula temporaries exceed the 255 a thread may hold:
-// that instance spills to local memory (ptxas -v, chip_smoke.py prints
-// it), a cost left to later work.
+// arithmetic. Design up to K = 10 and for the Edwards kernels: one thread
+// per lane, accumulator and all formula temporaries in registers, table
+// entries read straight from device memory (coalesced across lanes of a
+// warp for one limb). The pair loop stays rolled so that the second pair
+// adds no code and few registers. At K = 14 an extended point is 56
+// registers, so the Edwards accumulator, the entry and the formula
+// temporaries exceed the 255 a thread may hold: kernels 7 and 6-ed there
+// spill to local memory (ptxas -v, chip_smoke.py prints it). Kernels 4 and
+// 6 at K >= 12 run the group loop instead: four threads a lane, each with
+// a quarter of every element, so that 8192 lanes fill every SM and no
+// thread needs more than 128 registers (the notes in groupfield.cuh).
 // Staging the tables in shared memory (1.5 or 2 KB a lane and pair) is
 // later work.
 #include "windowed.cuh"

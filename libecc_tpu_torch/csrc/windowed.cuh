@@ -1,27 +1,50 @@
 // The window loops of kernels 4 and 6 (short Weierstrass) and 7 and 6-ed
 // (twisted Edwards) as templates over K, the formula set AK and the number
-// of (table, digits) pairs NPAIRS, with their launchers. windowed.cu
-// builds them at K = 8 (every a; Edwards a = -1; one and two pairs) and
-// the Edwards loop at K = 14 (a = 1, one pair); windowed_wide.cu kernel 4
-// at K = 12 (a = -3) and K = 16 (generic a); windowed_p521.cu kernel 4 at
-// K = 17 (a = -3); straus_wide.cu kernel 6 at K = 12 and 16; straus_ed448.cu
-// kernel 6-ed at K = 14 (a = 1); windowed_small.cu and straus_small.cu
-// kernels 4 and 6 at K = 6 and 7 (every a) and K = 10 (a = -3, generic
-// a); windowed_wide_alt.cu and straus_wide_alt.cu kernels 4 and 6 at
-// K = 12 (generic a) and K = 16 (a = -3); straus_p521.cu kernel 6 at
-// K = 17 (a = -3); windowed_wei448.cu and straus_wei448.cu kernels 4 and
-// 6 at K = 14 (generic a: WEI448). Each file is one nvcc process of the
-// parallel build.
-// The design notes are in windowed.cu.
+// of (table, digits) pairs NPAIRS, with their launchers. The short-
+// Weierstrass loop comes in two forms over one formula text (point.cuh's
+// templates over a field type):
+//
+// * one thread a lane (windowed_mul_kernel, field.cuh's ThreadField):
+//   windowed.cu builds it at K = 8 (every a; one and two pairs),
+//   windowed_small.cu and straus_small.cu at K = 6 and 7 (every a) and
+//   K = 10 (a = -3, generic a);
+// * a group of kGroupTPI = 4 threads a lane (windowed_mul_group_kernel,
+//   groupfield.cuh's GroupField), every instance at K >= 12:
+//   windowed_wide.cu and straus_wide.cu at K = 12 (a = -3) and K = 16
+//   (generic a), windowed_wide_alt.cu and straus_wide_alt.cu at K = 12
+//   (generic a) and K = 16 (a = -3), windowed_wei448.cu and
+//   straus_wei448.cu at K = 14 (generic a: WEI448), windowed_p521.cu and
+//   straus_p521.cu at K = 17 (a = -3: P-521).
+//
+// The Edwards loop is one thread a lane: windowed.cu at K = 8 (a = -1,
+// both kernels) and kernel 7 at K = 14 (a = 1), straus_ed448.cu kernel
+// 6-ed at K = 14. Each file is one nvcc process of the parallel build.
+//
+// Bound on the H100: integer multiply-add issue (the design notes are in
+// windowed.cu). One thread a lane, 8192 lanes fill 64 of the 132 SMs with
+// one warp a scheduler and run each product as one thread's chain of 2K^2
+// multiply-adds; at K >= 12 that chain and 255 registers (spilling at
+// K >= 14) set the time at 13-15x the bound. The group loop gives every
+// SM two blocks of 128 threads, a thread 3 to 5 limbs of each element and
+// carry chains of that length, needs no more than 128 registers, and on
+// the H100 runs at 3.6-4.6x the bound.
 #pragma once
 
 #include "edpoint.cuh"
+#include "groupfield.cuh"
 #include "point.cuh"
 
 namespace ecc {
 
 constexpr int kWindow = 4;
 constexpr int kEntries = 1 << kWindow;
+
+// The group loop (kernels 4 and 6 at K >= 12): threads a lane, threads a
+// block, and blocks an SM for __launch_bounds__ (4 blocks of 128 threads
+// cap a thread at 128 registers).
+constexpr int kGroupTPI = 4;
+constexpr int kGroupThreads = 128;
+constexpr int kGroupMinBlocks = 4;
 
 // The (digits, table) pairs of one launch: digits int32[nwin][n] MSW
 // first, table uint32[16][ncoord][K][n].
@@ -31,6 +54,42 @@ struct Pairs {
   const uint32_t* table[NPAIRS];
 };
 
+// The short-Weierstrass window loop over a field type F (field.cuh's
+// ThreadField or groupfield.cuh's GroupField): per window to_jac, w
+// doublings, from_jac, then one complete add of each pair's entry under
+// its digit. Returns the lane's accumulator (in F's elements).
+template <int AK, int NPAIRS, class F, class E = typename F::E>
+__device__ __forceinline__ PtOf<E> window_loop(const F& f,
+                                               const Pairs<NPAIRS>& pr,
+                                               int nwin, long long n,
+                                               long long lane) {
+  PtOf<E> acc;
+  acc.x = f.zero();
+  acc.y = f.one();
+  acc.z = f.zero();
+  const long long coord_stride = (long long)F::kLimbs * n;  // a coordinate
+  const long long entry_stride = 3 * coord_stride;          // an entry
+#pragma unroll 1
+  for (int wi = 0; wi < nwin; ++wi) {
+    PtOf<E> J = to_jac(f, acc);
+#pragma unroll 1
+    for (int d = 0; d < kWindow; ++d) J = jac_dbl<AK>(f, J);
+    acc = from_jac(f, J);
+#pragma unroll 1
+    for (int pi = 0; pi < NPAIRS; ++pi) {
+      const int dig = pr.digits[pi][(long long)wi * n + lane] & (kEntries - 1);
+      const uint32_t* e = pr.table[pi] + dig * entry_stride;
+      PtOf<E> T;
+      T.x = f.load(e, n, lane);
+      T.y = f.load(e + coord_stride, n, lane);
+      T.z = f.load(e + 2 * coord_stride, n, lane);
+      acc = rcb_add<AK>(f, acc, T);
+    }
+  }
+  return acc;
+}
+
+// Kernels 4 and 6, one thread a lane.
 template <int K, int AK, int NPAIRS>
 __global__ void __launch_bounds__(128)
 windowed_mul_kernel(const CurveCtx<K> C, const Pairs<NPAIRS> pr, int nwin,
@@ -38,28 +97,37 @@ windowed_mul_kernel(const CurveCtx<K> C, const Pairs<NPAIRS> pr, int nwin,
                     uint32_t* __restrict__ oz, long long n) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  Pt<K> acc;
-  acc.x = fe_zero<K>();
-  acc.y = fe_const<K>(C.one);
-  acc.z = fe_zero<K>();
-  const long long coord_stride = (long long)K * n;      // one coordinate
-  const long long entry_stride = 3 * coord_stride;      // one table entry
-#pragma unroll 1
-  for (int wi = 0; wi < nwin; ++wi) {
-    Pt<K> J = to_jac<K>(acc, C);
-#pragma unroll 1
-    for (int d = 0; d < kWindow; ++d) J = jac_dbl<K, AK>(J, C);
-    acc = from_jac<K>(J, C);
-#pragma unroll 1
-    for (int pi = 0; pi < NPAIRS; ++pi) {
-      const int dig = pr.digits[pi][(long long)wi * n + lane] & (kEntries - 1);
-      const uint32_t* e = pr.table[pi] + dig * entry_stride;
-      const Pt<K> T = load_pt<K>(e, e + coord_stride, e + 2 * coord_stride,
-                                 n, lane);
-      acc = rcb_add<K, AK>(acc, T, C);
-    }
+  store_pt<K>(ox, oy, oz, n, lane,
+              window_loop<AK>(ThreadField<K>(C), pr, nwin, n, lane));
+}
+
+// Kernels 4 and 6 where a group of TPI threads carries a lane
+// (groupfield.cuh): K >= 12. The formulas are the same templates over
+// GroupField, so the sequence of operations, and the result, is the
+// one-thread loop's. A block of kGroupThreads threads carries
+// kGroupThreads / TPI lanes; the threads past lane n - 1 (in the last
+// block) repeat lane n - 1 and do not store, so that every warp's
+// shuffles and votes see all 32 threads. Each thread of a group reads the
+// digit itself (one address for the group) and its L limb rows of the
+// entry: at one limb row the 32 / TPI lanes of a warp read adjacent words.
+template <int K, int AK, int NPAIRS, int TPI>
+__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
+windowed_mul_group_kernel(const CurveCtx<K> C, const Pairs<NPAIRS> pr,
+                          int nwin, uint32_t* __restrict__ ox,
+                          uint32_t* __restrict__ oy,
+                          uint32_t* __restrict__ oz, long long n) {
+  using GF = GroupField<K, TPI>;
+  __shared__ uint32_t consts[GF::kSharedWords];
+  GF::stage(consts, C);
+  const GF f(consts, C.f.pinv);
+  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / TPI;
+  const long long lane = g < n ? g : n - 1;
+  const PtOf<typename GF::E> acc = window_loop<AK>(f, pr, nwin, n, lane);
+  if (g < n) {
+    f.store(ox, n, lane, acc.x);
+    f.store(oy, n, lane, acc.y);
+    f.store(oz, n, lane, acc.z);
   }
-  store_pt<K>(ox, oy, oz, n, lane, acc);
 }
 
 constexpr int kThreads = 128;
@@ -80,7 +148,7 @@ Pairs<NPAIRS> pairs_of(const int32_t* const* digits,
 }
 
 // Kernels 4 and 6 at K with NPAIRS pairs for the formula sets AKs (see
-// launch_for_a); out: x, y, z.
+// launch_for_a), one thread a lane; out: x, y, z.
 template <int K, int NPAIRS, int... AKs>
 int launch_w(const CurveCtx<K>* C, const int32_t* const* digits, int nwin,
              const uint32_t* const* tables, uint32_t* const* out,
@@ -90,6 +158,20 @@ int launch_w(const CurveCtx<K>* C, const int32_t* const* digits, int nwin,
     windowed_mul_kernel<K, decltype(ak)::value, NPAIRS>
         <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
             *C, pr, nwin, out[0], out[1], out[2], n);
+  });
+}
+
+// The same with a group of kGroupTPI threads a lane (K >= 12).
+template <int K, int NPAIRS, int... AKs>
+int launch_wg(const CurveCtx<K>* C, const int32_t* const* digits, int nwin,
+              const uint32_t* const* tables, uint32_t* const* out,
+              long long n, void* stream) {
+  const Pairs<NPAIRS> pr = pairs_of<NPAIRS>(digits, tables);
+  const long long lanes = kGroupThreads / kGroupTPI;   // a block's lanes
+  return launch_for_a<AKs...>(C->a_kind, n, [&](auto ak) {
+    windowed_mul_group_kernel<K, decltype(ak)::value, NPAIRS, kGroupTPI>
+        <<<(unsigned)((n + lanes - 1) / lanes), kGroupThreads, 0,
+           (cudaStream_t)stream>>>(*C, pr, nwin, out[0], out[1], out[2], n);
   });
 }
 
@@ -154,4 +236,13 @@ int launch_ed(const EdCurveCtx<K>* C, const int32_t* const* digits,
            long long n, void* stream) {                                    \
     return ecc::launch_w<K, NPAIRS, AK>(C, digits, nwin, tables, out, n,   \
                                         stream);                           \
+  }
+
+// The same entry point built on the group loop (K >= 12).
+#define ECC_WG_ENTRY_POINT(NAME, K, NPAIRS, AK)                            \
+  int NAME(const ecc::CurveCtx<K>* C, const int32_t* const* digits,       \
+           int nwin, const uint32_t* const* tables, uint32_t* const* out,  \
+           long long n, void* stream) {                                    \
+    return ecc::launch_wg<K, NPAIRS, AK>(C, digits, nwin, tables, out, n,  \
+                                         stream);                          \
   }

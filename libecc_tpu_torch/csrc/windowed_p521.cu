@@ -15,24 +15,15 @@
 // and 30 products (a = -3), about 3.5 ms of the card's multiply-add issue
 // at 8192 lanes; chip_smoke.py computes the bound of each run. The table
 // read is one 51-word entry a window and lane, small beside the
-// arithmetic. Design: as K = 8, one thread per lane, the accumulator and
-// the formula in registers, the entry read from device memory by index
-// (PUBLIC scalars only). The accumulator, the entry and the temporaries
-// pass the 255 registers a thread may hold, so the compiler spills to
-// local memory; right first, the spills are later work.
+// arithmetic. Design: windowed.cuh's group loop with TPI = 4 threads a
+// lane, each holding 5 limbs of every element (limbs 17 to 19 of the
+// last thread zero): every SM busy, carry chains 5 limbs long, no spill
+// (one thread a lane would fill 64 SMs and spill 228 bytes). The entry is
+// read from device memory by index (PUBLIC scalars only).
 #include "windowed.cuh"
 
 extern "C" {
 
-// digits: int32[nwin][n] (MSW first); tables: uint32[16][3][17][n]; out:
-// x, y, z (each uint32[17][n]). a = -3 only: another a_kind returns
-// cudaErrorInvalidValue.
-int windowed_mul_k17_w4(const ecc::CurveCtx<17>* C,
-                        const int32_t* const* digits, int nwin,
-                        const uint32_t* const* tables, uint32_t* const* out,
-                        long long n, void* stream) {
-  return ecc::launch_w<17, 1, ecc::A_M3>(C, digits, nwin, tables, out, n,
-                                         stream);
-}
+ECC_WG_ENTRY_POINT(windowed_mul_k17_w4, 17, 1, ecc::A_M3)
 
 }  // extern "C"

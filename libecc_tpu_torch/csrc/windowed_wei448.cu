@@ -13,14 +13,15 @@
 //
 // Bound on the H100: integer-multiply issue. Per window 30 squares and 34
 // products (generic a), about 2.4 ms of the card's multiply-add issue at
-// 8192 lanes; chip_smoke.py computes the bound of each run. Design: as
-// K = 8 (windowed.cu); the accumulator, the entry and the temporaries
-// pass the 255 registers a thread may hold, so the compiler spills
-// (ptxas -v, chip_smoke.py prints it).
+// 8192 lanes; chip_smoke.py computes the bound of each run. Design:
+// windowed.cuh's group loop with TPI = 4 threads a lane, each holding 4
+// limbs of every element (limbs 14 and 15 of the last thread zero): every
+// SM busy, carry chains 4 limbs long, no spill (one thread a lane would
+// fill 64 SMs and spill).
 #include "windowed.cuh"
 
 extern "C" {
 
-ECC_W_ENTRY_POINT(windowed_mul_k14_ga_w4, 14, 1, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(windowed_mul_k14_ga_w4, 14, 1, ecc::A_GENERIC)
 
 }  // extern "C"

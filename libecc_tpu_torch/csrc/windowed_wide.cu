@@ -23,33 +23,18 @@
 // windows) and 3.7 ms at K = 16 (128 windows); chip_smoke.py computes the
 // bound of each run. The table read is one 3K-word entry a window and
 // lane, small beside the arithmetic.
-// Design: as K = 8, one thread per lane, the accumulator and the formula
-// in registers, the entry read from device memory by index (PUBLIC
-// scalars only). At K = 16 the accumulator, the entry and the temporaries
-// pass the 255 registers a thread may hold, so the compiler spills to
-// local memory; right first, the spills are later work.
+// Design: windowed.cuh's group loop (groupfield.cuh) with TPI = 4 threads
+// a lane, each holding 3 limbs of every element at K = 12 and 4 at
+// K = 16: 8192 lanes are 256 blocks of 128 threads, two on every SM, and
+// a product's carry chains are 3 or 4 limbs long (one thread a lane
+// would fill 64 SMs, run each product as a chain of 2K^2 multiply-adds
+// and spill at K = 16). The entry is read from device memory by index
+// (PUBLIC scalars only).
 #include "windowed.cuh"
 
 extern "C" {
 
-// digits: int32[nwin][n] (MSW first); tables: uint32[16][3][12][n]; out:
-// x, y, z (each uint32[12][n]). a = -3 only: another a_kind returns
-// cudaErrorInvalidValue.
-int windowed_mul_k12_w4(const ecc::CurveCtx<12>* C,
-                        const int32_t* const* digits, int nwin,
-                        const uint32_t* const* tables, uint32_t* const* out,
-                        long long n, void* stream) {
-  return ecc::launch_w<12, 1, ecc::A_M3>(C, digits, nwin, tables, out, n,
-                                         stream);
-}
-
-// As above at K = 16 (uint32[16][3][16][n] tables); generic a only.
-int windowed_mul_k16_w4(const ecc::CurveCtx<16>* C,
-                        const int32_t* const* digits, int nwin,
-                        const uint32_t* const* tables, uint32_t* const* out,
-                        long long n, void* stream) {
-  return ecc::launch_w<16, 1, ecc::A_GENERIC>(C, digits, nwin, tables, out,
-                                              n, stream);
-}
+ECC_WG_ENTRY_POINT(windowed_mul_k12_w4, 12, 1, ecc::A_M3)
+ECC_WG_ENTRY_POINT(windowed_mul_k16_w4, 16, 1, ecc::A_GENERIC)
 
 }  // extern "C"

@@ -15,15 +15,15 @@
 // Bound on the H100: integer-multiply issue. Per window 30 squares and 34
 // products for generic a, 22 and 30 for a = -3: about 1.6 ms of the card's
 // multiply-add issue at 8192 lanes at K = 12 and 3.1 ms at K = 16;
-// chip_smoke.py computes the bound of each run. Design: as K = 8; at
-// K = 16 the accumulator, the entry and the temporaries pass the 255
-// registers a thread may hold, so the compiler spills (ptxas -v,
-// chip_smoke.py prints it). Right first; the spills are later work.
+// chip_smoke.py computes the bound of each run. Design: windowed.cuh's
+// group loop with TPI = 4 threads a lane (3 limbs a thread at K = 12, 4
+// at K = 16), as windowed_wide.cu: every SM busy, short carry chains, no
+// spill (one thread a lane would fill 64 SMs and spill at K = 16).
 #include "windowed.cuh"
 
 extern "C" {
 
-ECC_W_ENTRY_POINT(windowed_mul_k12_ga_w4, 12, 1, ecc::A_GENERIC)
-ECC_W_ENTRY_POINT(windowed_mul_k16_m3_w4, 16, 1, ecc::A_M3)
+ECC_WG_ENTRY_POINT(windowed_mul_k12_ga_w4, 12, 1, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(windowed_mul_k16_m3_w4, 16, 1, ecc::A_M3)
 
 }  // extern "C"

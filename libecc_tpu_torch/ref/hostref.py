@@ -105,6 +105,17 @@ def ec_small_order_point(c: WCurve, x0: int = 2):
         x += 1
 
 
+def ec_order2_point(c: WCurve):
+    """The point (x, 0) of order 2 of a curve whose h is a power of two
+    with such a point: ec_small_order_point doubled while that leaves the
+    identity."""
+    T = ec_small_order_point(c)
+    while ec_add(c, T, T) is not None:
+        T = ec_add(c, T, T)
+    assert T[1] == 0
+    return T
+
+
 def window_edge_scalars(q: int, w: int = 4) -> list[int]:
     """Scalars that drive a w-bit fixed-window multiply of a point of order
     q through the complete add's edge cases in its last window: 0 (every

@@ -20,6 +20,7 @@ from ..config import resolve_device
 from ..curves import scalar_mul
 from ..curves.shortw import ShortWCurve, PrjPoint, is_infinity_mask, \
     to_affine_plain
+from ..fp import field as fp
 from ..nn import core as nn
 
 
@@ -50,12 +51,19 @@ def order_check_mask(curve: ShortWCurve, pub: PrjPoint) -> np.ndarray:
     """Batched q*P == infinity check (reference: check_prj_pt_order,
     prj_pt.c:1909): True lanes have order dividing q. One windowed multiply
     by the PUBLIC scalar q, broadcast over the lanes, on the keys' device
-    (kernel 4 on the card). Returns an np.bool mask."""
+    (kernel 4 on the card). Returns an np.bool mask.
+
+    A point (x, 0) has order 2, which the odd q does not divide, so its lane
+    is False whatever the multiply gives: on a curve with such a point
+    (even h) the complete formulas add the identity (0 : Y : 0) to it and
+    get (0 : 0 : 0), which reads as the identity. A Montgomery-form Y is
+    zero exactly when y is."""
     kq, n = curve.q_ctx.k, pub.x.shape[1]
     ql = curve.q_ctx.col(curve.q, pub.x.device).expand(kq, n).contiguous()
     qP = scalar_mul.windowed_mul_public(curve, ql, pub,
                                         nbits=curve.q.bit_length())
-    ok = is_infinity_mask(curve, qP)
+    order2 = fp.is_zero_mask(pub.y) & ~fp.is_zero_mask(pub.z)
+    ok = is_infinity_mask(curve, qP) & ~order2
     stages.mark("order check", ok)
     return ok.cpu().numpy()
 

@@ -1,0 +1,218 @@
+#!/usr/bin/env python3
+"""Time kernels 4 and 6 at K >= 12 on the group loop (csrc/windowed.cuh,
+the sources as they are) against the one-thread loop of the same C entry
+points (the sources with ECC_W_ENTRY_POINT in place of
+ECC_WG_ENTRY_POINT), on one NVIDIA GPU. --tpi N adds a third build with
+N threads a lane (windowed.cuh's kGroupTPI set to N in a copy).
+
+Each of the 12 instances runs at N = 8192 lanes on random points (64
+distinct ones, random Z) and random scalars; every build's output is held
+bitwise against the group loop's (which the card-only tests and
+chip_smoke.py hold against the plain versions). Times are CUDA event ms a
+launch, measured in turns (the builds in order, then in reverse), and
+ptxas's registers, spills and stack of each build are printed. The builds
+go under libecc_tpu_torch/_build/group_loop/.
+
+    python3 scripts/time_group_loop.py [--out FILE] [--tpi N]
+"""
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+N = 8192
+REPS = 3
+STEMS = ["windowed_wide", "windowed_wide_alt", "windowed_wei448",
+         "windowed_p521", "straus_wide", "straus_wide_alt",
+         "straus_wei448", "straus_p521"]
+# one curve for each (K, a) built on the group loop
+CURVES = ["P-384", "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1",
+          "BRAINPOOLP512R1", "P-521"]
+TPI_LINE = "constexpr int kGroupTPI = 4;"
+
+
+def build_variant(build, label, edit, workdir):
+    """nvcc each wide source, its text passed through edit(name, text) for
+    itself and for windowed.cuh (a quoted include finds the copy beside
+    it first), into workdir/label; returns {stem: (.so, log)}."""
+    vdir = Path(workdir) / label
+    vdir.mkdir(parents=True)
+    (vdir / "windowed.cuh").write_text(
+        edit("windowed.cuh", (build.CSRC / "windowed.cuh").read_text()))
+
+    def one(stem):
+        src, so = vdir / f"{stem}.cu", vdir / f"{stem}.so"
+        src.write_text(edit(src.name, (build.CSRC / src.name).read_text()))
+        r = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS,
+                            "-I", str(build.CSRC), "-o", str(so), str(src)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc {label} {stem}:\n{r.stdout}{r.stderr}")
+        return stem, (str(so), r.stdout + r.stderr)
+
+    with ThreadPoolExecutor(len(STEMS)) as ex:
+        return dict(ex.map(one, STEMS))
+
+
+def variants(tpi):
+    """Label -> edit(name, text) of each build."""
+    def one_thread(name, text):
+        if name == "windowed.cuh":
+            return text
+        return text.replace("ECC_WG_ENTRY_POINT(", "ECC_W_ENTRY_POINT(")
+
+    def group_tpi(name, text):
+        if name != "windowed.cuh":
+            return text
+        assert TPI_LINE in text, TPI_LINE
+        return text.replace(TPI_LINE, f"constexpr int kGroupTPI = {tpi};")
+
+    out = {"group": lambda name, text: text, "one-thread": one_thread}
+    if tpi:
+        out[f"tpi{tpi}"] = group_tpi
+    return out
+
+
+def ptxas_summary(log: str) -> dict:
+    """Kernel (K, a_kind, pairs) -> [registers, spill store bytes, stack
+    frame bytes]."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            km = re.search(r"kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
+            key = "k{}_a{}_p{}".format(*km.groups()) if km else None
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            out.setdefault(key, [None, 0, 0])[1:] = [int(m.group(2)),
+                                                     int(m.group(1))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, [None, 0, 0])[0] = int(m.group(1))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--tpi", type=int, default=0)
+    args = ap.parse_args()
+    edits = variants(args.tpi)
+    import ctypes
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    from libecc_tpu_torch.curves import params, scalar_mul
+    from libecc_tpu_torch.curves.shortw import PrjPoint
+    from libecc_tpu_torch.nn import core as nn
+    from libecc_tpu_torch.ops.cuda import build, megamul
+    from libecc_tpu_torch.ref import hostref as H
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.library(STEMS[0])          # the kernels that make the tables
+    wd = build.BUILD_DIR / "group_loop"
+    shutil.rmtree(wd, ignore_errors=True)
+    with ThreadPoolExecutor(len(edits)) as ex:
+        futs = {lb: ex.submit(build_variant, build, lb, e, wd)
+                for lb, e in edits.items()}
+        builds = {lb: f.result() for lb, f in futs.items()}
+    libs = {lb: {s: ctypes.CDLL(so) for s, (so, _) in b.items()}
+            for lb, b in builds.items()}
+    print(f"builds: {time.perf_counter() - t0:.1f} s")
+    regs = {lb: ptxas_summary("\n".join(log for _, log in b.values()))
+            for lb, b in builds.items()}
+    print(json.dumps({"ptxas": regs}))
+    rng = np.random.RandomState(9)
+    order = [*edits, *reversed(list(edits))]
+    first = order[0]
+    rows = []
+    for name in CURVES:
+        c = params.get_curve(name)
+        p, q = c.fp_ctx.p_int, c.q
+        wc = H.WCurve(p, c.a, c.b, c.gx, c.gy, q, c.h)
+
+        def rand(mod, n):
+            nb = (mod.bit_length() + 7) // 8 + 8
+            return [int.from_bytes(rng.bytes(nb), "big") % mod
+                    for _ in range(n)]
+
+        def points():
+            base = [H.ec_base_mul(wc, 1 + v % (q - 1)) for v in rand(q, 64)]
+            lam = [1 + v % (p - 1) for v in rand(p, N)]
+            pts = [base[i % 64] for i in range(N)]
+            return PrjPoint(*[c.fp_ctx.from_ints(col, dev) for col in (
+                [P_[0] * m % p for P_, m in zip(pts, lam)],
+                [P_[1] * m % p for P_, m in zip(pts, lam)], lam)])
+
+        tabs = [scalar_mul._build_mul_table(c, points()) for _ in range(2)]
+        digs = [scalar_mul._window_digits(nn.upload(nn.batch_to_limbs(
+            rand(q, N), c.q_ctx.k), dev), c.scalar_bits()) for _ in range(2)]
+        for npairs in (1, 2):
+            kname, _, stem = megamul.instance(c, "w", npairs)
+            times, outs = {lb: [] for lb in libs}, {}
+            for lb in order:
+                saved = build._LIBS[stem]
+                build._LIBS[stem] = libs[lb][stem]
+                try:
+                    def run():
+                        return megamul._launch(c, tabs[:npairs],
+                                               digs[:npairs], PrjPoint)
+                    outs[lb] = run()
+                    torch.cuda.synchronize()
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    for _ in range(REPS):
+                        run()
+                    b.record()
+                    torch.cuda.synchronize()
+                    times[lb].append(a.elapsed_time(b) / REPS)
+                finally:
+                    build._LIBS[stem] = saved
+            same = {lb: all(torch.equal(x, y) for x, y in
+                            zip(outs[lb], outs[first])) for lb in outs}
+            row = {"name": kname, "k": c.fp_ctx.k, "curve": name,
+                   "npairs": npairs, "n": N,
+                   "nwin": digs[0].shape[0], "bitwise_equal": same,
+                   "ms": {lb: round(sum(v) / len(v), 5)
+                          for lb, v in times.items()},
+                   "ms_each": {lb: [round(x, 5) for x in v]
+                               for lb, v in times.items()}}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    ok = all(all(r["bitwise_equal"].values()) for r in rows)
+    result = {"device": smi, "n": N, "reps": REPS,
+              "builds": list(edits),
+              "ptxas": regs,
+              "rows": rows, "all_bitwise_equal": ok}
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps({"all_bitwise_equal": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,17 +33,21 @@ def small_order_point(c, x0=2):
     return H.ec_small_order_point(host(c), x0)
 
 
-def mixed_keys(c, seed, bad=(1, 4, 6), n=8):
+def mixed_keys(c, seed, bad=(1, 4, 6), n=8, order2=False):
     """n keys d_i*G; on the lanes `bad` a point of small order is added
-    (G*d + T, T from small_order_point at three starting x). Returns the
+    (G*d + T, T from small_order_point at three starting x); with order2,
+    lane n is the curve's point T2 = (x, 0) of order 2 itself. Returns the
     affine keys and the host oracle's mask (q*P == O)."""
     wc = host(c)
     rng = np.random.RandomState(seed)
     pts = [H.ec_base_mul(wc, 1 + v) for v in ints(rng, n, c.q - 1)]
     for j, i in enumerate(bad):
         pts[i] = H.ec_add(wc, pts[i], small_order_point(c, 2 + 40 * j))
+    if order2:
+        pts.append(H.ec_order2_point(wc))
     want = [H.ec_mul(wc, c.q, P) is None for P in pts]
-    assert [i for i, ok in enumerate(want) if not ok] == list(bad)
+    assert [i for i, ok in enumerate(want) if not ok] == (
+        list(bad) + [n] * order2)
     return pts, want
 
 
@@ -162,17 +166,23 @@ def test_the_cofactor_curves():
                    for n in cof)
 
 
-@pytest.mark.parametrize("name", ["WEI448", "GOST_R3410_2012_512_PARAMSETC"])
+@pytest.mark.parametrize("name", ["WEI448", "GOST_R3410_2012_512_PARAMSETC",
+                                  "WEI25519",
+                                  "GOST_R3410_2012_256_PARAMSETA"])
 def test_order_check_matches_the_host_oracle(name):
-    """order_check_mask on 8 keys, three with a small-order component,
-    equals the host oracle's q*P == O; the default import (h > 1: the
-    check on) raises ValueError naming exactly those keys."""
+    """order_check_mask on 9 keys, three with a small-order component and
+    the last the point T2 of order 2 (y = 0), equals the host oracle's
+    q*P == O; the default import (h > 1: the check on) raises ValueError
+    naming exactly those keys. T2 is refused although the complete
+    formulas' add of the identity and T2 gives (0 : 0 : 0), which reads as
+    the identity: the y = 0 test beside the multiply."""
     c = params.get_curve(name)
-    pts, want = mixed_keys(c, 401)
+    pts, want = mixed_keys(c, 401, order2=True)
+    assert pts[8][1] == 0 and want[8] is False
     xs, ys = [P[0] for P in pts], [P[1] for P in pts]
     pub = c.point_from_affine_ints(xs, ys, "cpu")
     assert K.order_check_mask(c, pub).tolist() == want
-    with pytest.raises(ValueError, match=r"public key\(s\) \[1, 4, 6\]: "
+    with pytest.raises(ValueError, match=r"public key\(s\) \[1, 4, 6, 8\]: "
                                          "point not in the order-q"):
         K.pubkey_batch_from_affine_ints(c, "ECDSA", xs, ys, device="cpu")
 

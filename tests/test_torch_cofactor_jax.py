@@ -4,22 +4,20 @@ an h == 1 curve by default or where it is switched off. Slow, because
 the JAX package's order check is one jitted call of 55-80 s here and its
 eager verify_core on WEI25519 about 75 s (a file's default tier has 60
 s): on WEI25519 (h = 8) and GOST R 34.10-2012 256 paramSetA (h = 4), 8
-keys d*G, three with a point of small order added
-(test_torch_cofactor.mixed_keys): both packages' default import raises
-the same ValueError naming the same keys, and the masks that their
-order_check_mask give inside it (spies) are equal and equal the host
-oracle's; and the two verify_core on WEI25519's 16 adversarial lanes,
-lane for lane. On GOST 256 A a ninth key is the curve's point T2 of order
-2 (y = 0). The host oracle gives q*T2 = T2, so the key should be
-refused, but both packages pass it: a known fault of both, open in
-ROADMAP.md section 3. The complete addition formulas they share
-(Renes-Costello-Batina) are not complete on a curve with points of order
-2: their windowed multiply adds the identity (0 : Y : 0) to T2 and gets
-(0 : 0 : 0), which reads as the identity. On that lane the port is held
-to the JAX package, and the test asserts that the fault is still there,
-so that its fix has to update the test; every other lane is held to the
-host oracle. The port's check against the host oracle, without JAX, is
-in test_torch_cofactor.py. Exact."""
+keys d*G, three with a point of small order added, and a ninth key, the
+curve's point T2 of order 2 (y = 0) (test_torch_cofactor.mixed_keys):
+the masks that both packages' order_check_mask give inside the default
+import (spies) are taken, and the port's equals the host oracle's on
+every lane. The host oracle gives q*T2 = T2, so T2 is refused, and the
+port refuses it; the JAX package passes it, a fault that the reference
+keeps: the complete addition formulas (Renes-Costello-Batina) are not
+complete on a curve with points of order 2, so the windowed multiply
+adds the identity (0 : Y : 0) to T2 and gets (0 : 0 : 0), which reads as
+the identity. The port tests y = 0 beside the multiply. So the two masks
+differ exactly at T2, and the two imports raise naming the same keys but
+T2. Then the two verify_core on WEI25519's 16 adversarial lanes, lane for
+lane. The port's check against the host oracle, without JAX, is in
+test_torch_cofactor.py. Exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,8 +32,7 @@ from libecc_tpu_torch.curves import params
 from libecc_tpu_torch.ref import hostref as H
 from libecc_tpu_torch.sig import ecdsa, keys as K
 
-from test_torch_cofactor import (CURVES, cofactor_lanes, mixed_keys,
-                                 small_order_point)
+from test_torch_cofactor import CURVES, cofactor_lanes, mixed_keys
 from test_torch_registry import _one_torch_thread, digest, host
 
 assert _one_torch_thread                # the module's autouse fixture
@@ -70,20 +67,16 @@ def import_both(name, pts, monkeypatch):
     ("WEI25519", 403), ("GOST_R3410_2012_256_PARAMSETA", 405)])
 def test_order_check_matches_jax(name, seed, monkeypatch):
     c = params.get_curve(name)
-    pts, want = mixed_keys(c, seed)
-    known_fault = []                # lanes the host oracle refuses, both pass
-    if c.h == 4:
-        t2 = small_order_point(c)
-        assert t2[1] == 0 and H.ec_mul(host(c), c.q, t2) == t2
-        pts, known_fault = pts + [t2], [len(pts)]
+    pts, want = mixed_keys(c, seed, order2=True)
+    t2 = len(pts) - 1
+    assert pts[t2][1] == 0 and H.ec_mul(host(c), c.q, pts[t2]) == pts[t2]
     err, jerr, masks = import_both(name, pts, monkeypatch)
-    assert err == jerr == ("public key(s) [1, 4, 6]: point not in the "
-                           "order-q subgroup")
-    assert masks["port"].tolist() == masks["jax"].tolist()
-    assert [m for i, m in enumerate(masks["port"].tolist())
-            if i not in known_fault] == want
-    # the known fault (ROADMAP.md section 3): T2 passes in both packages
-    assert all(masks["port"][i] for i in known_fault)
+    msg = "public key(s) {}: point not in the order-q subgroup"
+    assert err == msg.format([1, 4, 6, t2])
+    assert jerr == msg.format([1, 4, 6])
+    assert masks["port"].tolist() == want
+    # the fault that the JAX package keeps: T2 passes its check
+    assert np.flatnonzero(masks["port"] != masks["jax"]).tolist() == [t2]
 
 
 def test_neither_checks_where_it_should_not(monkeypatch):

@@ -617,3 +617,65 @@ def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
             digs.shape[0], point.ptr_array([tab] * npairs),
             point.ptr_array(outs), 3, stream)
     assert rc == 1                                     # cudaErrorInvalidValue
+
+
+# -- kernels 4 and 6 on the group loop (a group of threads a lane, K >= 12) --
+
+# one curve for each (K, a) built on the group loop
+GROUP_CURVES = ["P-384", "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1",
+                "BRAINPOOLP512R1", "P-521"]
+
+
+@pytest.mark.parametrize("npairs", [1, 2])
+@pytest.mark.parametrize("name", GROUP_CURVES)
+def test_group_loop_kernels_match_plain_at_ragged_n(dev, name, npairs):
+    """Kernel 4 (npairs 1) and kernel 6 (npairs 2) at each (K, a) of the
+    group loop against their plain versions, bitwise, at n = 1 (one group,
+    a partial warp), 33 (a block carries 32 lanes: a partial block) and
+    161 (the last of six blocks holds one lane); at K = 14 and 17 the
+    groups' zero limbs are in play. The first lanes carry the identity
+    (lanes 1 and 2 of P) and the window edge scalars. One plain run at
+    161 lanes serves the three, the lanes being independent. With n = 0
+    the C entry point returns 0 and so launched nothing: a launch of no
+    blocks is refused (cudaErrorInvalidConfiguration)."""
+    import ctypes
+    c = params.get_curve(name)
+    rng = np.random.RandomState(81)
+    nmax = 161
+    P, Q = _point_pairs(c, rng, nmax, dev)
+    edges = H.window_edge_scalars(c.q)
+    us = edges + [2, 1 << 100] + _ints(rng, nmax - len(edges) - 2, c.q)
+    vs = [0, 5] + edges + _ints(rng, nmax - len(edges) - 2, c.q)
+    nbits = c.scalar_bits()
+
+    def inputs(n):
+        tabs = [scalar_mul._build_mul_table(
+            c, PrjPoint(*[v[:, :n].contiguous() for v in T]))
+            for T in (P, Q)[:npairs]]
+        digs = [scalar_mul._window_digits(nn.upload(nn.batch_to_limbs(
+            m[:n], c.q_ctx.k), dev), nbits) for m in (us, vs)[:npairs]]
+        return tabs, digs
+
+    tabs, digs = inputs(nmax)
+    want = megamul._mul_plain(c, tabs, digs, PrjPoint)
+    name_k = megamul.kernel_name_of(c, npairs)
+    for n in (1, 33, nmax):
+        tabs, digs = inputs(n)
+        before = megamul.launches[name_k]
+        got = (megamul.windowed_mul(c, tabs[0], digs[0], PrjPoint)
+               if npairs == 1 else
+               megamul.straus_mul(c, tabs[0], digs[0], tabs[1], digs[1],
+                                  PrjPoint))
+        assert megamul.launches[name_k] == before + 1
+        assert all(torch.equal(g, w[:, :n]) for g, w in zip(got, want)), n
+    _, cname, stem = megamul.instance(c, "w", npairs)
+    k = c.fp_ctx.k
+    tab = torch.zeros((16, 3, k, 0), dtype=torch.int32, device=dev)
+    dig = torch.zeros((digs[0].shape[0], 0), dtype=torch.int32, device=dev)
+    outs = [torch.zeros((k, 0), dtype=torch.int32, device=dev)] * 3
+    rc = getattr(megamul._lib(stem), cname)(
+        ctypes.byref(point.curve_struct(c)), point.ptr_array([dig] * npairs),
+        dig.shape[0], point.ptr_array([tab] * npairs), point.ptr_array(outs),
+        0, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc == 0
+    torch.cuda.synchronize()
