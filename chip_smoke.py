@@ -114,12 +114,18 @@ W_PER_WINDOW = {"m3": ((22, 30), (22, 44)), "a0": ((26, 26), (26, 40)),
 # the products of kernel 2 (an add) and kernel 3 (a double, besides its
 # three squares) by formula set
 ADD_DBL_PRODUCTS = {"m3": (14, 10), "a0": (14, 10), "ga": (18, 14)}
-ED_PER_WINDOW = (16, 25)                # 4 dbl-2008-hwcd + add-2008-hwcd-3
-ED448_PER_WINDOW = (16, 26)             # the same with add-2008-hwcd (a = 1)
+# kernels 7 and 6-ed, the products the function needs: 4 dbl-2008-hwcd
+# (4 squares, 4 products) and add-2008-hwcd-3 (a = -1, 9 products) or
+# add-2008-hwcd (a = 1, 10) a pair. T (one product) is needed only before
+# an add and at the output: no doubling but the last of a window, and not
+# the window's last add, whose T the next window's doubling does not read,
+# so 13 + 8 (+ 9) or 13 + 9 (+ 10); the output's one T a lane is left out
+ED_PER_WINDOW = (16, 21)                # kernel 7, K = 8, a = -1
+ED448_PER_WINDOW = (16, 22)             # kernel 7, K = 14, a = 1
 ED_ADD_PRODUCTS = 9                     # add-2008-hwcd-3 (a = -1)
 ED448_ADD_PRODUCTS = 10                 # add-2008-hwcd: one product more
-ED_STRAUS_PER_WINDOW = (16, 34)         # kernel 6-ed: one more extended add
-ED448_STRAUS_PER_WINDOW = (16, 36)      # kernel 6-ed with add-2008-hwcd
+ED_STRAUS_PER_WINDOW = (16, 30)         # kernel 6-ed: one more extended add
+ED448_STRAUS_PER_WINDOW = (16, 32)      # kernel 6-ed with add-2008-hwcd
 JOINT_NDBL = 2                          # the joint Straus step: 2^2*acc + T
 # kernel 5 per lane: (squares, products) of one doubling and the products
 # outside the doublings (the complete add and the Jacobian conversions);
@@ -1462,7 +1468,7 @@ def run(torch) -> int:
     }
     source.update({"mont_mul_k14": "mont.cu", "mont_sqr_k14": "mont.cu",
                    "ed_add_k14": "edpoint.cu", "ed_dbl_k14": "edpoint.cu",
-                   "windowed_mul_ed_k14": "windowed.cu"})
+                   "windowed_mul_ed_k14": "windowed_ed448.cu"})
     replaces.update({
         "mont_mul_k14": "libecc_tpu/ops/pallas/mont.py:297",
         "mont_sqr_k14": "libecc_tpu/ops/pallas/mont.py:297",

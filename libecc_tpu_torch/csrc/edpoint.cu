@@ -15,10 +15,12 @@
 // for 12 x 4K bytes of traffic per lane (8 coordinates in, 4 out): at
 // K = 8 about 2,400 multiply-add slots for 384 bytes (at K = 14 about
 // 7,200 for 672 bytes), well above the card's slot-to-byte ratio; a
-// double is 4 squares and 4 products for 7 x 4K bytes. Design: as kernels 2 and 3, one thread per lane, the whole
-// formula in registers. Kernel 8c keeps the point in registers across its
-// n doublings (4n squares and 4n + 9 products for 384 bytes; n is a
-// run-time argument); with n = 0 it is the add, T of P included.
+// double is 4 squares and 4 products for 7 x 4K bytes. Design: as kernels
+// 2 and 3, one thread per lane, the whole formula in registers: the
+// templates of edpoint.cuh over field.cuh's ThreadField. Kernel 8c keeps
+// the point in registers across its n doublings (4n squares and 4n + 9
+// products for 384 bytes; n is a run-time argument); with n = 0 it is the
+// add, T of P included.
 #include "edpoint.cuh"
 
 namespace ecc {
@@ -37,9 +39,10 @@ ed_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
               uint32_t* __restrict__ t3, long long n) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
+  const ThreadField<K, EdCurveCtx<K>> f(C);
   const ExtPt<K> P = load_ext<K>(x1, y1, z1, t1, n, lane);
   const ExtPt<K> Q = load_ext<K>(x2, y2, z2, t2, n, lane);
-  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<K, AK>(P, Q, C));
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<AK>(f, P, Q));
 }
 
 template <int K, int AK>
@@ -51,10 +54,11 @@ ed_dbl_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
               uint32_t* __restrict__ t3, long long n) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
+  const ThreadField<K, EdCurveCtx<K>> f(C);
   const Fe<K> X = load_fe<K>(x1, n, lane);
   const Fe<K> Y = load_fe<K>(y1, n, lane);
   const Fe<K> Z = load_fe<K>(z1, n, lane);
-  store_ext<K>(x3, y3, z3, t3, n, lane, ed_dbl<K, AK>(X, Y, Z, C));
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_dbl<AK>(f, X, Y, Z));
 }
 
 template <int K, int AK>
@@ -72,12 +76,12 @@ ed_dbln_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
                    long long n, int ndbl) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
+  const ThreadField<K, EdCurveCtx<K>> f(C);
   ExtPt<K> acc = load_ext<K>(x1, y1, z1, t1, n, lane);
 #pragma unroll 1
-  for (int i = 0; i < ndbl; ++i)
-    acc = ed_dbl<K, AK>(acc.x, acc.y, acc.z, C);
+  for (int i = 0; i < ndbl; ++i) acc = ed_dbl<AK>(f, acc.x, acc.y, acc.z);
   const ExtPt<K> T = load_ext<K>(x2, y2, z2, t2, n, lane);
-  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<K, AK>(acc, T, C));
+  store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<AK>(f, acc, T));
 }
 
 constexpr int kThreads = 256;

@@ -11,93 +11,101 @@
 // D = A). The entry points refuse any other (K, a). For a = -1 and for
 // a = 1 with d not a square (Ed448) both formulas are complete, so no
 // lane needs an identity select.
+//
+// The formulas are templates over a field type F, as point.cuh's are:
+// field.cuh's ThreadField (one thread a lane: kernels 8a, 8b, 8c, and 7
+// and 6-ed at K = 8) or groupfield.cuh's GroupField (a group of threads a
+// lane: kernels 7 and 6-ed at K = 14), one text for both. The curve's
+// constants come from the field type (f.one(), f.d(), f.d2()), and
+// independent products are asked for in pairs (mul2, sqr2), which the
+// group field computes together.
 #pragma once
 
 #include "field.cuh"
 
 namespace ecc {
 
-// Curve constants, all Montgomery-form canonical. a_kind is ED_A_M1 for
-// a = -1 and ED_A_1 for a = 1; the entry points refuse any other value.
-template <int K>
-struct EdCurveCtx {
-  FieldCtx<K> f;
-  uint32_t one[K];
-  uint32_t d2[K];
-  uint32_t d[K];
-  int32_t a_kind;
+// An extended point over a field type's element E (Fe<K> for
+// ThreadField, a thread's slice for GroupField).
+template <class E>
+struct ExtOf {
+  E x, y, z, t;
 };
 
-constexpr int32_t ED_A_M1 = 1;
-constexpr int32_t ED_A_1 = 2;
-
 template <int K>
-struct ExtPt {
-  Fe<K> x, y, z, t;
-};
+using ExtPt = ExtOf<Fe<K>>;
 
-// P + Q. a = -1: add-2008-hwcd-3, 8 products and one by 2d. a = 1:
-// add-2008-hwcd, 8 products and one by d, H = B - A. Both strongly
-// unified (valid for P = Q and for the identity).
-template <int K, int AK>
-__device__ __forceinline__ ExtPt<K> ed_add(const ExtPt<K>& P,
-                                           const ExtPt<K>& Q,
-                                           const EdCurveCtx<K>& C) {
-  const FieldCtx<K>& f = C.f;
-  Fe<K> E, F, G, H;
-  if constexpr (AK == ED_A_M1) {
-    const Fe<K> A = fmul<K>(fsub<K>(P.y, P.x, f), fsub<K>(Q.y, Q.x, f), f);
-    const Fe<K> B = fmul<K>(fadd<K>(P.y, P.x, f), fadd<K>(Q.y, Q.x, f), f);
-    const Fe<K> Cm = fmul_const<K>(fmul<K>(P.t, Q.t, f), C.d2, f);
-    Fe<K> Dm = fmul<K>(P.z, Q.z, f);
-    Dm = fadd<K>(Dm, Dm, f);
-    E = fsub<K>(B, A, f);
-    F = fsub<K>(Dm, Cm, f);
-    G = fadd<K>(Dm, Cm, f);
-    H = fadd<K>(B, A, f);
+// The common output of the add and the doubling: (E*F : G*H : F*G : E*H)
+// in two pairs. With kT false the product E*H is not taken and T is left
+// zero: only a doubling, which reads X, Y and Z, may follow.
+template <bool kT, class F, class E = typename F::E>
+__device__ __forceinline__ ExtOf<E> ed_out(const F& f, const E& e,
+                                           const E& ff, const E& g,
+                                           const E& h) {
+  ExtOf<E> R;
+  const Two<E> xy = f.mul2(e, ff, g, h);
+  R.x = xy.a;
+  R.y = xy.b;
+  if constexpr (kT) {
+    const Two<E> zt = f.mul2(ff, g, e, h);
+    R.z = zt.a;
+    R.t = zt.b;
   } else {
-    static_assert(AK == ED_A_1, "a = -1 or a = 1");
-    const Fe<K> A = fmul<K>(P.x, Q.x, f);
-    const Fe<K> B = fmul<K>(P.y, Q.y, f);
-    const Fe<K> Cm = fmul_const<K>(fmul<K>(P.t, Q.t, f), C.d, f);
-    const Fe<K> Dm = fmul<K>(P.z, Q.z, f);
-    const Fe<K> E0 = fmul<K>(fadd<K>(P.x, P.y, f), fadd<K>(Q.x, Q.y, f), f);
-    E = fsub<K>(fsub<K>(E0, A, f), B, f);
-    F = fsub<K>(Dm, Cm, f);
-    G = fadd<K>(Dm, Cm, f);
-    H = fsub<K>(B, A, f);
+    R.z = f.mul(ff, g);
+    R.t = f.zero();
   }
-  ExtPt<K> R;
-  R.x = fmul<K>(E, F, f);
-  R.y = fmul<K>(G, H, f);
-  R.z = fmul<K>(F, G, f);
-  R.t = fmul<K>(E, H, f);
   return R;
 }
 
+// P + Q. a = -1: add-2008-hwcd-3, 8 products and one by 2d (four pairs
+// and the one by 2d). a = 1: add-2008-hwcd, 8 products and one by d,
+// H = B - A (five pairs: X1X2 with Y1Y2, T1T2 with Z1Z2, (X1+Y1)(X2+Y2)
+// with T1T2*d, then the output's). Both strongly unified (valid for
+// P = Q and for the identity).
+template <int AK, class F, class E = typename F::E>
+__device__ __forceinline__ ExtOf<E> ed_add(const F& f, const ExtOf<E>& P,
+                                           const ExtOf<E>& Q) {
+  E e, ff, g, h;
+  if constexpr (AK == ED_A_M1) {
+    const Two<E> ab = f.mul2(f.sub(P.y, P.x), f.sub(Q.y, Q.x),
+                             f.add(P.y, P.x), f.add(Q.y, Q.x));
+    const Two<E> tz = f.mul2(P.t, Q.t, P.z, Q.z);
+    const E Cm = f.mul(tz.a, f.d2());
+    const E Dm = f.add(tz.b, tz.b);
+    e = f.sub(ab.b, ab.a);
+    ff = f.sub(Dm, Cm);
+    g = f.add(Dm, Cm);
+    h = f.add(ab.b, ab.a);
+  } else {
+    static_assert(AK == ED_A_1, "a = -1 or a = 1");
+    const Two<E> ab = f.mul2(P.x, Q.x, P.y, Q.y);
+    const Two<E> tz = f.mul2(P.t, Q.t, P.z, Q.z);
+    const Two<E> e0c = f.mul2(f.add(P.x, P.y), f.add(Q.x, Q.y), tz.a,
+                              f.d());
+    e = f.sub(f.sub(e0c.a, ab.a), ab.b);
+    ff = f.sub(tz.b, e0c.b);
+    g = f.add(tz.b, e0c.b);
+    h = f.sub(ab.b, ab.a);
+  }
+  return ed_out<true>(f, e, ff, g, h);
+}
+
 // 2P by dbl-2008-hwcd with D = a*A (-A for a = -1, A for a = 1): 4
-// squares and 4 products. Reads X, Y, Z only.
-template <int K, int AK>
-__device__ __forceinline__ ExtPt<K> ed_dbl(const Fe<K>& X, const Fe<K>& Y,
-                                           const Fe<K>& Z,
-                                           const EdCurveCtx<K>& C) {
+// squares in two pairs and 4 products (3 with kT false, see ed_out).
+// Reads X, Y, Z only.
+template <int AK, bool kT = true, class F, class E = typename F::E>
+__device__ __forceinline__ ExtOf<E> ed_dbl(const F& f, const E& X,
+                                           const E& Y, const E& Z) {
   static_assert(AK == ED_A_M1 || AK == ED_A_1, "a = -1 or a = 1");
-  const FieldCtx<K>& f = C.f;
-  const Fe<K> A = fsqr<K>(X, f);
-  const Fe<K> B = fsqr<K>(Y, f);
-  const Fe<K> Cs = fsqr<K>(Z, f);
-  const Fe<K> E0 = fsqr<K>(fadd<K>(X, Y, f), f);
-  const Fe<K> D = AK == ED_A_M1 ? fsub<K>(fe_zero<K>(), A, f) : A;
-  const Fe<K> E = fsub<K>(fsub<K>(E0, A, f), B, f);
-  const Fe<K> G = fadd<K>(D, B, f);
-  const Fe<K> F = fsub<K>(G, fadd<K>(Cs, Cs, f), f);
-  const Fe<K> H = fsub<K>(D, B, f);
-  ExtPt<K> R;
-  R.x = fmul<K>(E, F, f);
-  R.y = fmul<K>(G, H, f);
-  R.z = fmul<K>(F, G, f);
-  R.t = fmul<K>(E, H, f);
-  return R;
+  const Two<E> ab = f.sqr2(X, Y);
+  const Two<E> ce = f.sqr2(Z, f.add(X, Y));
+  const E A = ab.a, B = ab.b, Cs = ce.a;
+  const E D = AK == ED_A_M1 ? f.sub(f.zero(), A) : A;
+  const E e = f.sub(f.sub(ce.b, A), B);
+  const E g = f.add(D, B);
+  const E ff = f.sub(g, f.add(Cs, Cs));
+  const E h = f.sub(D, B);
+  return ed_out<kT>(f, e, ff, g, h);
 }
 
 template <int K>

@@ -6,12 +6,13 @@
 // (< p) in the Montgomery domain R = 2^(32K), so results compare bitwise
 // with the plain PyTorch versions and "is zero" is a limb compare.
 //
-// These __device__ functions are kernel 1's body and the field layer of
-// the kernels where one thread carries a lane: the Edwards kernels
-// (edpoint.cuh) and, through ThreadField, kernels 2, 3, 5 and kernels 4
-// and 6 at K <= 10 (point.cuh, windowed.cuh). groupfield.cuh holds the
-// field where a group of threads carries a lane (kernels 4 and 6 at
-// K >= 12). They replace the TPU's relaxed 15-bit-limb arithmetic
+// These __device__ functions are kernel 1's body and, through ThreadField,
+// the field layer of the kernels where one thread carries a lane: kernels
+// 2, 3, 5 and kernels 4 and 6 at K <= 10 (point.cuh, windowed.cuh), and
+// the Edwards kernels 8a, 8b, 8c and 7 and 6-ed at K = 8 (edpoint.cuh).
+// groupfield.cuh holds the field where a group of threads carries a lane
+// (kernels 4 and 6 at K >= 12, 7 and 6-ed at K = 14). They replace the
+// TPU's relaxed 15-bit-limb arithmetic
 // (libecc_tpu/ops/pallas/mont.py:_mont_body_refs), whose float32
 // exact-carry trick exists for the TPU's vector unit; Hopper has 32x32->64
 // integer multiplies and carries, so a product here is a schoolbook (or
@@ -44,6 +45,21 @@ struct CurveCtx {
 };
 
 enum AKind { A_GENERIC = 0, A_M3 = 1, A_ZERO = 2 };
+
+// Twisted-Edwards curve constants (edpoint.cuh), all Montgomery-form
+// canonical. a_kind is ED_A_M1 for a = -1 and ED_A_1 for a = 1; the entry
+// points refuse any other value.
+template <int K>
+struct EdCurveCtx {
+  FieldCtx<K> f;
+  uint32_t one[K];
+  uint32_t d2[K];
+  uint32_t d[K];
+  int32_t a_kind;
+};
+
+constexpr int32_t ED_A_M1 = 1;
+constexpr int32_t ED_A_1 = 2;
 
 template <int K>
 struct Fe {
@@ -240,13 +256,6 @@ __device__ __forceinline__ Fe<K> fsqr(const Fe<K>& a, const FieldCtx<K>& f) {
   return mont_reduce<K>(t, f);
 }
 
-template <int K>
-__device__ __forceinline__ Fe<K> fmul_const(const Fe<K>& a,
-                                            const uint32_t (&c)[K],
-                                            const FieldCtx<K>& f) {
-  return fmul<K>(a, fe_const<K>(c), f);
-}
-
 // Two field elements (the results of a field type's mul2).
 template <class E>
 struct Two {
@@ -255,18 +264,22 @@ struct Two {
 
 // The one-thread field: a lane's element is an Fe<K> in one thread, and
 // every operation is the free function above. The point formulas of
-// point.cuh are templates over a field type with this interface (E; mul,
-// sqr and the pairs mul2, sqr2, sqr_mul; add, sub; the curve's a, a^2,
-// 3b and one; zero, is_zero, select; load; kLimbs = K); groupfield.cuh's
-// GroupField is the other one.
-template <int K>
+// point.cuh and edpoint.cuh are templates over a field type with this
+// interface (E; mul, sqr and the pairs mul2, sqr2, sqr_mul; add, sub; the
+// curve's constants: a, a^2, 3b and one from a CurveCtx, one, d and 2d
+// from an EdCurveCtx; zero, is_zero, select; load; kLimbs = K);
+// groupfield.cuh's GroupField is the other one. Ctx is the curve context
+// the constants come from; an accessor that it lacks does not compile.
+// kInlineProducts says whether a product is inlined (here) or a call
+// (GroupField), which decides how much code a formula adds.
+template <int K, class Ctx = CurveCtx<K>>
 struct ThreadField {
   using E = Fe<K>;
   static constexpr int kLimbs = K;
-  const CurveCtx<K>& C;
+  static constexpr bool kInlineProducts = true;  // each product inlined
+  const Ctx& C;
 
-  __device__ __forceinline__ explicit ThreadField(const CurveCtx<K>& c)
-      : C(c) {}
+  __device__ __forceinline__ explicit ThreadField(const Ctx& c) : C(c) {}
   __device__ __forceinline__ E mul(const E& a, const E& b) const {
     return fmul<K>(a, b, C.f);
   }
@@ -295,6 +308,8 @@ struct ThreadField {
   __device__ __forceinline__ E a2() const { return fe_const<K>(C.a2); }
   __device__ __forceinline__ E b3() const { return fe_const<K>(C.b3); }
   __device__ __forceinline__ E one() const { return fe_const<K>(C.one); }
+  __device__ __forceinline__ E d() const { return fe_const<K>(C.d); }
+  __device__ __forceinline__ E d2() const { return fe_const<K>(C.d2); }
   __device__ __forceinline__ E zero() const { return fe_zero<K>(); }
   __device__ __forceinline__ bool is_zero(const E& a) const {
     return ecc::is_zero<K>(a);

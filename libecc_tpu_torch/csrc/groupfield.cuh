@@ -1,5 +1,6 @@
-// The field of kernels 4 and 6 at K >= 12: a group of TPI neighbouring
-// threads of a warp carries one lane (sm_90a).
+// The field of kernels 4 and 6 at K >= 12 and of kernels 7 and 6-ed at
+// K = 14: a group of TPI neighbouring threads of a warp carries one lane
+// (sm_90a).
 //
 // Thread j of a group (j = 0 .. TPI-1) holds limbs j*L .. j*L+L-1 of every
 // field element, L = ceil(K / TPI); the limbs from K up to L*TPI (K = 14
@@ -79,13 +80,16 @@ struct GroupField {
   static_assert(TPI >= 2 && TPI <= 16 && (TPI & (TPI - 1)) == 0,
                 "a group is 2, 4, 8 or 16 threads of one warp");
   static constexpr int kLimbs = K;
+  static constexpr bool kInlineProducts = false;  // gf_mul, gf_mul2 calls
   static constexpr int L = (K + TPI - 1) / TPI;
   static constexpr int KP = L * TPI;         // limbs with the zero padding
   using E = Slice<L>;
 
   // The curve's constants in shared memory, each KP words (zero padded):
-  // p, one, a, a^2, 3b.
-  enum { kP = 0, kOne, kA, kA2, kB3, kNumConsts };
+  // p and one, then a, a^2 and 3b from a CurveCtx (short Weierstrass) or d
+  // and 2d from an EdCurveCtx (twisted Edwards; the slots of the other
+  // context stay unwritten).
+  enum { kP = 0, kOne, kA, kA2, kB3, kD, kD2, kNumConsts };
   static constexpr int kSharedWords = kNumConsts * KP;
 
   const uint32_t* cs;      // the block's constants (shared memory)
@@ -99,17 +103,31 @@ struct GroupField {
   static __device__ __forceinline__ void stage(uint32_t* sh,
                                                const CurveCtx<K>& C) {
     if (threadIdx.x == 0) {
-#pragma unroll
-      for (int i = 0; i < KP; ++i) {
-        const bool in = i < K;
-        sh[kP * KP + i] = in ? C.f.p[i] : 0u;
-        sh[kOne * KP + i] = in ? C.one[i] : 0u;
-        sh[kA * KP + i] = in ? C.a[i] : 0u;
-        sh[kA2 * KP + i] = in ? C.a2[i] : 0u;
-        sh[kB3 * KP + i] = in ? C.b3[i] : 0u;
-      }
+      put(sh, kP, C.f.p);
+      put(sh, kOne, C.one);
+      put(sh, kA, C.a);
+      put(sh, kA2, C.a2);
+      put(sh, kB3, C.b3);
     }
     __syncthreads();
+  }
+
+  static __device__ __forceinline__ void stage(uint32_t* sh,
+                                               const EdCurveCtx<K>& C) {
+    if (threadIdx.x == 0) {
+      put(sh, kP, C.f.p);
+      put(sh, kOne, C.one);
+      put(sh, kD, C.d);
+      put(sh, kD2, C.d2);
+    }
+    __syncthreads();
+  }
+
+  // One constant into its slot, zero padded to KP words.
+  static __device__ __forceinline__ void put(uint32_t* sh, int slot,
+                                             const uint32_t (&v)[K]) {
+#pragma unroll
+    for (int i = 0; i < KP; ++i) sh[slot * KP + i] = i < K ? v[i] : 0u;
   }
 
   __device__ __forceinline__ GroupField(const uint32_t* sh, uint32_t pinv_)
@@ -347,6 +365,8 @@ struct GroupField {
   __device__ __forceinline__ E a2() const { return constant(kA2); }
   __device__ __forceinline__ E b3() const { return constant(kB3); }
   __device__ __forceinline__ E one() const { return constant(kOne); }
+  __device__ __forceinline__ E d() const { return constant(kD); }
+  __device__ __forceinline__ E d2() const { return constant(kD2); }
   __device__ __forceinline__ E zero() const {
     E r;
 #pragma unroll

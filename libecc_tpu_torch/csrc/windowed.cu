@@ -25,12 +25,13 @@
 // dbl-2008-hwcd doublings, then for each pair one extended add of the
 // lane's entry (edpoint.cuh: add-2008-hwcd-3 for a = -1, add-2008-hwcd for
 // a = 1). Both formula sets are complete on the curves they are built for,
-// so there is no identity select. Built for a = -1 at K = 8 (Ed25519,
-// kernels 7 and 6-ed) and, for kernel 7, a = 1 at K = 14 (Ed448: q has
-// 446 bits, so 112 windows; with kernels 1, 8a and 8b at K = 14 this is
-// the port's counterpart of the TPU's rows.py:RowOps backend, :129, which
-// megamul.py takes for Ed448's K = 32); kernel 6-ed at K = 14 is built in
-// straus_ed448.cu.
+// so there is no identity select. Built here for a = -1 at K = 8
+// (Ed25519, kernels 7 and 6-ed, one thread a lane); at K = 14 for a = 1
+// (Ed448: q has 446 bits, so 112 windows) kernel 7 is built in
+// windowed_ed448.cu and 6-ed in straus_ed448.cu, on the group loop. With
+// kernels 1, 8a and 8b at K = 14 those are the port's counterpart of the
+// TPU's rows.py:RowOps backend, :129, which megamul.py takes for Ed448's
+// K = 32.
 //
 // The order of the adds is the reference's: the projective values (not
 // only the points) are held bitwise against the plain versions and, on the
@@ -45,20 +46,21 @@
 //
 // Bound on the H100: integer-multiply issue (per window 22 squares and 30
 // products in kernel 4, 16 and 25 in kernel 7; one add more per pair: 22
-// and 44 in kernel 6, 16 and 34 in kernel 6-ed; 16 and 26 in kernel 7
-// at a = 1, whose add takes one product more), plus the table bytes:
-// each window reads one 3K- or 4K-word entry per pair and lane, 64 x 96 or
+// and 44 in kernel 6, 16 and 34 in kernel 6-ed; at K = 14, a = 1, 16 and
+// 23 in kernel 7 and 16 and 33 in 6-ed: the add takes one product more,
+// and on the group loop the doublings before the last of a window take
+// no T), plus the table bytes: each
+// window reads one 3K- or 4K-word entry per pair and lane, 64 x 96 or
 // 64 x 128 bytes per pair at K = 8, so table traffic is small beside the
-// arithmetic. Design up to K = 10 and for the Edwards kernels: one thread
-// per lane, accumulator and all formula temporaries in registers, table
-// entries read straight from device memory (coalesced across lanes of a
-// warp for one limb). The pair loop stays rolled so that the second pair
-// adds no code and few registers. At K = 14 an extended point is 56
-// registers, so the Edwards accumulator, the entry and the formula
-// temporaries exceed the 255 a thread may hold: kernels 7 and 6-ed there
-// spill to local memory (ptxas -v, chip_smoke.py prints it). Kernels 4 and
-// 6 at K >= 12 run the group loop instead: four threads a lane, each with
-// a quarter of every element, so that 8192 lanes fill every SM and no
+// arithmetic. Design up to K = 10: one thread per lane, accumulator and
+// all formula temporaries in registers, table entries read straight from
+// device memory (coalesced across lanes of a warp for one limb). The pair
+// loop stays rolled so that the second pair adds no code and few
+// registers. At K >= 12 one thread a lane would run each product as one
+// long chain on 64 of the 132 SMs and spill (an extended point is 56
+// registers at K = 14), so kernels 4 and 6 there and the Edwards kernels
+// at K = 14 run the group loop instead: four threads a lane, each with a
+// quarter of every element, so that 8192 lanes fill every SM and no
 // thread needs more than 128 registers (the notes in groupfield.cuh).
 // Staging the tables in shared memory (1.5 or 2 KB a lane and pair) is
 // later work.
@@ -85,34 +87,9 @@ int straus_mul_k8_w4(const ecc::CurveCtx<8>* C, const int32_t* const* digits,
       C, digits, nwin, tables, out, n, stream);
 }
 
-// As above with uint32[16][4][8][n] tables and out x, y, z, t. Return
-// cudaErrorInvalidValue for a curve with a != -1. Kernel 7: m*P.
-int windowed_mul_ed_k8_w4(const ecc::EdCurveCtx<8>* C,
-                          const int32_t* const* digits, int nwin,
-                          const uint32_t* const* tables,
-                          uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_ed<8, ecc::ED_A_M1, 1>(C, digits, nwin, tables, out, n,
-                                            stream);
-}
-
-// Kernel 6-ed: u*P + v*Q.
-int straus_mul_ed_k8_w4(const ecc::EdCurveCtx<8>* C,
-                        const int32_t* const* digits, int nwin,
-                        const uint32_t* const* tables, uint32_t* const* out,
-                        long long n, void* stream) {
-  return ecc::launch_ed<8, ecc::ED_A_M1, 2>(C, digits, nwin, tables, out, n,
-                                            stream);
-}
-
-// Kernel 7 at K = 14 for a = 1 (Ed448): m*P with uint32[16][4][14][n]
-// tables and out x, y, z, t (each uint32[14][n]). Returns
-// cudaErrorInvalidValue for a curve with a != 1.
-int windowed_mul_ed_k14_w4(const ecc::EdCurveCtx<14>* C,
-                           const int32_t* const* digits, int nwin,
-                           const uint32_t* const* tables,
-                           uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_ed<14, ecc::ED_A_1, 1>(C, digits, nwin, tables, out, n,
-                                            stream);
-}
+// Kernel 7 (m*P) and kernel 6-ed (u*P + v*Q) at a = -1 (Ed25519), with
+// uint32[16][4][8][n] tables and out x, y, z, t (ECC_ED_ENTRY_POINT).
+ECC_ED_ENTRY_POINT(windowed_mul_ed_k8_w4, 8, 1, ecc::ED_A_M1)
+ECC_ED_ENTRY_POINT(straus_mul_ed_k8_w4, 8, 2, ecc::ED_A_M1)
 
 }  // extern "C"

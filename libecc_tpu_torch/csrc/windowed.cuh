@@ -1,33 +1,34 @@
 // The window loops of kernels 4 and 6 (short Weierstrass) and 7 and 6-ed
 // (twisted Edwards) as templates over K, the formula set AK and the number
-// of (table, digits) pairs NPAIRS, with their launchers. The short-
-// Weierstrass loop comes in two forms over one formula text (point.cuh's
-// templates over a field type):
+// of (table, digits) pairs NPAIRS, with their launchers. Each loop is one
+// text over a field type (the formulas of point.cuh and edpoint.cuh are
+// templates over it) and comes in two forms:
 //
-// * one thread a lane (windowed_mul_kernel, field.cuh's ThreadField):
-//   windowed.cu builds it at K = 8 (every a; one and two pairs),
-//   windowed_small.cu and straus_small.cu at K = 6 and 7 (every a) and
-//   K = 10 (a = -3, generic a);
+// * one thread a lane (windowed_mul_kernel, windowed_mul_ed_kernel;
+//   field.cuh's ThreadField): windowed.cu builds kernels 4 and 6 at K = 8
+//   (every a; one and two pairs) and 7 and 6-ed at K = 8 (a = -1),
+//   windowed_small.cu and straus_small.cu kernels 4 and 6 at K = 6 and 7
+//   (every a) and K = 10 (a = -3, generic a);
 // * a group of kGroupTPI = 4 threads a lane (windowed_mul_group_kernel,
-//   groupfield.cuh's GroupField), every instance at K >= 12:
-//   windowed_wide.cu and straus_wide.cu at K = 12 (a = -3) and K = 16
-//   (generic a), windowed_wide_alt.cu and straus_wide_alt.cu at K = 12
-//   (generic a) and K = 16 (a = -3), windowed_wei448.cu and
-//   straus_wei448.cu at K = 14 (generic a: WEI448), windowed_p521.cu and
-//   straus_p521.cu at K = 17 (a = -3: P-521).
+//   windowed_mul_ed_group_kernel; groupfield.cuh's GroupField), every
+//   instance at K >= 12: windowed_wide.cu and straus_wide.cu at K = 12
+//   (a = -3) and K = 16 (generic a), windowed_wide_alt.cu and
+//   straus_wide_alt.cu at K = 12 (generic a) and K = 16 (a = -3),
+//   windowed_wei448.cu and straus_wei448.cu at K = 14 (generic a:
+//   WEI448), windowed_p521.cu and straus_p521.cu at K = 17 (a = -3:
+//   P-521), and the Edwards kernels 7 in windowed_ed448.cu and 6-ed in
+//   straus_ed448.cu at K = 14 (a = 1: Ed448).
 //
-// The Edwards loop is one thread a lane: windowed.cu at K = 8 (a = -1,
-// both kernels) and kernel 7 at K = 14 (a = 1), straus_ed448.cu kernel
-// 6-ed at K = 14. Each file is one nvcc process of the parallel build.
+// Each file is one nvcc process of the parallel build.
 //
 // Bound on the H100: integer multiply-add issue (the design notes are in
 // windowed.cu). One thread a lane, 8192 lanes fill 64 of the 132 SMs with
 // one warp a scheduler and run each product as one thread's chain of 2K^2
 // multiply-adds; at K >= 12 that chain and 255 registers (spilling at
-// K >= 14) set the time at 13-15x the bound. The group loop gives every
+// K >= 14) set the time at 12-15x the bound. The group loop gives every
 // SM two blocks of 128 threads, a thread 3 to 5 limbs of each element and
 // carry chains of that length, needs no more than 128 registers, and on
-// the H100 runs at 3.6-4.6x the bound.
+// the H100 runs kernels 4 and 6 at 3.6-4.6x the bound.
 #pragma once
 
 #include "edpoint.cuh"
@@ -39,9 +40,9 @@ namespace ecc {
 constexpr int kWindow = 4;
 constexpr int kEntries = 1 << kWindow;
 
-// The group loop (kernels 4 and 6 at K >= 12): threads a lane, threads a
-// block, and blocks an SM for __launch_bounds__ (4 blocks of 128 threads
-// cap a thread at 128 registers).
+// The group loop (kernels 4 and 6 at K >= 12, 7 and 6-ed at K = 14):
+// threads a lane, threads a block, and blocks an SM for __launch_bounds__
+// (4 blocks of 128 threads cap a thread at 128 registers).
 constexpr int kGroupTPI = 4;
 constexpr int kGroupThreads = 128;
 constexpr int kGroupMinBlocks = 4;
@@ -175,8 +176,55 @@ int launch_wg(const CurveCtx<K>* C, const int32_t* const* digits, int nwin,
   });
 }
 
-// The Edwards loop of kernels 7 and 6-ed at K with the formula set AK and
-// NPAIRS pairs (see windowed.cu); out: x, y, z, t.
+// The Edwards window loop over a field type F (ThreadField over an
+// EdCurveCtx, or GroupField): the accumulator starts at (0 : 1 : 1 : 0);
+// per window w doublings, then one extended add of each pair's entry under
+// its digit. Where products are calls (GroupField) the first w - 1
+// doublings leave T untaken (ed_dbl's kT): a doubling reads X, Y and Z
+// only, so only the last one before the adds needs it, and the products
+// E*H of the others would be dead (on the H100 5.5% of kernel 7's time at
+// K = 14). Where products are inlined (ThreadField) every doubling takes
+// T: with a second doubling body, the one without T, the K = 8 kernels
+// ran 15-21% slower on the H100 with fewer registers and no spill (most
+// likely the loop's code outgrew the instruction cache).
+// Returns the lane's accumulator (in F's elements).
+template <int AK, int NPAIRS, class F, class E = typename F::E>
+__device__ __forceinline__ ExtOf<E> ed_window_loop(const F& f,
+                                                   const Pairs<NPAIRS>& pr,
+                                                   int nwin, long long n,
+                                                   long long lane) {
+  ExtOf<E> acc;
+  acc.x = f.zero();
+  acc.y = f.one();
+  acc.z = f.one();
+  acc.t = f.zero();
+  const long long coord_stride = (long long)F::kLimbs * n;  // a coordinate
+  const long long entry_stride = 4 * coord_stride;          // an entry
+  constexpr int kNoT = F::kInlineProducts ? 0 : kWindow - 1;
+#pragma unroll 1
+  for (int wi = 0; wi < nwin; ++wi) {
+#pragma unroll 1
+    for (int d = 0; d < kNoT; ++d)
+      acc = ed_dbl<AK, false>(f, acc.x, acc.y, acc.z);
+#pragma unroll 1
+    for (int d = kNoT; d < kWindow; ++d)
+      acc = ed_dbl<AK>(f, acc.x, acc.y, acc.z);
+#pragma unroll 1
+    for (int pi = 0; pi < NPAIRS; ++pi) {
+      const int dig = pr.digits[pi][(long long)wi * n + lane] & (kEntries - 1);
+      const uint32_t* e = pr.table[pi] + dig * entry_stride;
+      ExtOf<E> T;
+      T.x = f.load(e, n, lane);
+      T.y = f.load(e + coord_stride, n, lane);
+      T.z = f.load(e + 2 * coord_stride, n, lane);
+      T.t = f.load(e + 3 * coord_stride, n, lane);
+      acc = ed_add<AK>(f, acc, T);
+    }
+  }
+  return acc;
+}
+
+// Kernels 7 and 6-ed, one thread a lane; out: x, y, z, t.
 template <int K, int AK, int NPAIRS>
 __global__ void __launch_bounds__(128)
 windowed_mul_ed_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
@@ -185,31 +233,39 @@ windowed_mul_ed_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
                        uint32_t* __restrict__ ot, long long n) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  ExtPt<K> acc;
-  acc.x = fe_zero<K>();
-  acc.y = fe_const<K>(C.one);
-  acc.z = fe_const<K>(C.one);
-  acc.t = fe_zero<K>();
-  const long long coord_stride = (long long)K * n;
-  const long long entry_stride = 4 * coord_stride;
-#pragma unroll 1
-  for (int wi = 0; wi < nwin; ++wi) {
-#pragma unroll 1
-    for (int d = 0; d < kWindow; ++d)
-      acc = ed_dbl<K, AK>(acc.x, acc.y, acc.z, C);
-#pragma unroll 1
-    for (int pi = 0; pi < NPAIRS; ++pi) {
-      const int dig = pr.digits[pi][(long long)wi * n + lane] & (kEntries - 1);
-      const uint32_t* e = pr.table[pi] + dig * entry_stride;
-      const ExtPt<K> T = load_ext<K>(e, e + coord_stride,
-                                     e + 2 * coord_stride,
-                                     e + 3 * coord_stride, n, lane);
-      acc = ed_add<K, AK>(acc, T, C);
-    }
-  }
-  store_ext<K>(ox, oy, oz, ot, n, lane, acc);
+  const ThreadField<K, EdCurveCtx<K>> f(C);
+  store_ext<K>(ox, oy, oz, ot, n, lane,
+               ed_window_loop<AK>(f, pr, nwin, n, lane));
 }
 
+// Kernels 7 and 6-ed where a group of TPI threads carries a lane: as
+// windowed_mul_group_kernel, with the Edwards loop and four coordinates.
+template <int K, int AK, int NPAIRS, int TPI>
+__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
+windowed_mul_ed_group_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
+                             int nwin, uint32_t* __restrict__ ox,
+                             uint32_t* __restrict__ oy,
+                             uint32_t* __restrict__ oz,
+                             uint32_t* __restrict__ ot, long long n) {
+  using GF = GroupField<K, TPI>;
+  __shared__ uint32_t consts[GF::kSharedWords];
+  GF::stage(consts, C);
+  const GF f(consts, C.f.pinv);
+  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / TPI;
+  const long long lane = g < n ? g : n - 1;
+  const ExtOf<typename GF::E> acc = ed_window_loop<AK>(f, pr, nwin, n, lane);
+  if (g < n) {
+    f.store(ox, n, lane, acc.x);
+    f.store(oy, n, lane, acc.y);
+    f.store(oz, n, lane, acc.z);
+    f.store(ot, n, lane, acc.t);
+  }
+}
+
+// Kernels 7 and 6-ed at K with the formula set AK and NPAIRS pairs, one
+// thread a lane (launch_ed) or a group of kGroupTPI threads a lane
+// (launch_edg); out: x, y, z, t. A context of another a_kind returns
+// cudaErrorInvalidValue and launches nothing.
 template <int K, int AK, int NPAIRS>
 int launch_ed(const EdCurveCtx<K>* C, const int32_t* const* digits,
               int nwin, const uint32_t* const* tables, uint32_t* const* out,
@@ -220,6 +276,20 @@ int launch_ed(const EdCurveCtx<K>* C, const int32_t* const* digits,
                                             (cudaStream_t)stream>>>(
         *C, pairs_of<NPAIRS>(digits, tables), nwin, out[0], out[1], out[2],
         out[3], n);
+  return (int)cudaGetLastError();
+}
+
+template <int K, int AK, int NPAIRS>
+int launch_edg(const EdCurveCtx<K>* C, const int32_t* const* digits,
+               int nwin, const uint32_t* const* tables, uint32_t* const* out,
+               long long n, void* stream) {
+  if (C->a_kind != AK) return (int)cudaErrorInvalidValue;
+  const long long lanes = kGroupThreads / kGroupTPI;   // a block's lanes
+  if (n > 0)
+    windowed_mul_ed_group_kernel<K, AK, NPAIRS, kGroupTPI>
+        <<<(unsigned)((n + lanes - 1) / lanes), kGroupThreads, 0,
+           (cudaStream_t)stream>>>(*C, pairs_of<NPAIRS>(digits, tables),
+                                   nwin, out[0], out[1], out[2], out[3], n);
   return (int)cudaGetLastError();
 }
 
@@ -245,4 +315,27 @@ int launch_ed(const EdCurveCtx<K>* C, const int32_t* const* digits,
            long long n, void* stream) {                                    \
     return ecc::launch_wg<K, NPAIRS, AK>(C, digits, nwin, tables, out, n,  \
                                          stream);                          \
+  }
+
+// The C entry point NAME of kernel 7 (NPAIRS = 1) or 6-ed (NPAIRS = 2) for
+// one (K, Edwards formula set AK), one thread a lane. digits: NPAIRS
+// pointers to int32[nwin][n] (MSW first); tables: NPAIRS pointers to
+// uint32[16][4][K][n] (for kernel 6-ed, P's then Q's); out: x, y, z, t
+// (each uint32[K][n]). A context of another a_kind returns
+// cudaErrorInvalidValue and launches nothing.
+#define ECC_ED_ENTRY_POINT(NAME, K, NPAIRS, AK)                            \
+  int NAME(const ecc::EdCurveCtx<K>* C, const int32_t* const* digits,     \
+           int nwin, const uint32_t* const* tables, uint32_t* const* out,  \
+           long long n, void* stream) {                                    \
+    return ecc::launch_ed<K, AK, NPAIRS>(C, digits, nwin, tables, out, n,  \
+                                         stream);                          \
+  }
+
+// The same entry point built on the group loop (K = 14).
+#define ECC_EDG_ENTRY_POINT(NAME, K, NPAIRS, AK)                           \
+  int NAME(const ecc::EdCurveCtx<K>* C, const int32_t* const* digits,     \
+           int nwin, const uint32_t* const* tables, uint32_t* const* out,  \
+           long long n, void* stream) {                                    \
+    return ecc::launch_edg<K, AK, NPAIRS>(C, digits, nwin, tables, out, n, \
+                                          stream);                         \
   }

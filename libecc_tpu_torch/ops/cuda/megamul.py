@@ -1,9 +1,9 @@
 """Kernels 4, 6, 7 and 6-ed: the whole fixed-window scalar multiply and the
 whole Straus dual multiply (``csrc/windowed.cu``; the other instances in
 ``csrc/windowed_wide.cu``, ``windowed_wide_alt.cu``, ``windowed_small.cu``,
-``windowed_p521.cu``, ``windowed_wei448.cu``, ``straus_wide.cu``,
-``straus_wide_alt.cu``, ``straus_small.cu``, ``straus_p521.cu``,
-``straus_wei448.cu`` and ``straus_ed448.cu``).
+``windowed_p521.cu``, ``windowed_wei448.cu``, ``windowed_ed448.cu``,
+``straus_wide.cu``, ``straus_wide_alt.cu``, ``straus_small.cu``,
+``straus_p521.cu``, ``straus_wei448.cu`` and ``straus_ed448.cu``).
 
 Counterpart of ``libecc_tpu/ops/pallas/megamul.py``: ``windowed_mul``
 (npairs 1) and ``straus_mul`` (npairs 2), each in two models. The model
@@ -28,8 +28,9 @@ K = 14 (Edwards a = 1, Ed448), and for kernels 4 and 6 at K = 6 and 7
 WEI448), K = 16 (a = -3 and generic a: the 512-bit curves) and K = 17
 (a = -3, P-521). The K = 14, 16 and 17 instances are the counterpart of
 the TPU's large-K ``rows.py:RowOps`` backend. Kernels 4 and 6 at K >= 12
-run a group of four threads a lane (``csrc/groupfield.cuh``), the others
-one thread a lane; the wrappers and the layouts are the same. The
+and kernels 7 and 6-ed at K = 14 run a group of four threads a lane
+(``csrc/groupfield.cuh``), the others one thread a lane; the wrappers and
+the layouts are the same. The
 wrappers raise on any other shape or a for a tensor on the card.
 """
 
@@ -66,7 +67,7 @@ _KERNELS = {
     (8, "ed", 2, A_M1): ("straus_mul_ed", "straus_mul_ed_k8_w4",
                          "windowed"),
     (14, "ed", 1, A_1): (kernel_name("windowed_mul_ed", 14),
-                         "windowed_mul_ed_k14_w4", "windowed"),
+                         "windowed_mul_ed_k14_w4", "windowed_ed448"),
     (12, "w", 1, A_M3): ("windowed_mul_k12_w4", "windowed_mul_k12_w4",
                          "windowed_wide"),
     (16, "w", 1, A_GENERIC): ("windowed_mul_k16_w4", "windowed_mul_k16_w4",

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Time kernels 4 and 6 at K >= 12 on the group loop (csrc/windowed.cuh,
-the sources as they are) against the one-thread loop of the same C entry
-points (the sources with ECC_W_ENTRY_POINT in place of
-ECC_WG_ENTRY_POINT), on one NVIDIA GPU. --tpi N adds a third build with
-N threads a lane (windowed.cuh's kGroupTPI set to N in a copy).
+"""Time kernels 4 and 6 at K >= 12 and kernels 7 and 6-ed at K = 14
+(Ed448) on the group loop (csrc/windowed.cuh, the sources as they are)
+against the one-thread loop of the same C entry points (the sources with
+ECC_W_ENTRY_POINT in place of ECC_WG_ENTRY_POINT and ECC_ED_ENTRY_POINT in
+place of ECC_EDG_ENTRY_POINT), on one NVIDIA GPU. --tpi N adds a build
+with N threads a lane (windowed.cuh's kGroupTPI set to N in a copy);
+--curves NAME,... times only those curves' instances and builds only their
+sources.
 
-Each of the 12 instances runs at N = 8192 lanes on random points (64
+Each of the 14 instances runs at N = 8192 lanes on random points (64
 distinct ones, random Z) and random scalars; every build's output is held
 bitwise against the group loop's (which the card-only tests and
 chip_smoke.py hold against the plain versions). Times are CUDA event ms a
@@ -14,6 +17,7 @@ ptxas's registers, spills and stack of each build are printed. The builds
 go under libecc_tpu_torch/_build/group_loop/.
 
     python3 scripts/time_group_loop.py [--out FILE] [--tpi N]
+        [--curves NAME,...]
 """
 
 import argparse
@@ -32,19 +36,16 @@ sys.path.insert(0, str(ROOT))
 
 N = 8192
 REPS = 3
-STEMS = ["windowed_wide", "windowed_wide_alt", "windowed_wei448",
-         "windowed_p521", "straus_wide", "straus_wide_alt",
-         "straus_wei448", "straus_p521"]
 # one curve for each (K, a) built on the group loop
 CURVES = ["P-384", "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1",
-          "BRAINPOOLP512R1", "P-521"]
+          "BRAINPOOLP512R1", "P-521", "ED448"]
 TPI_LINE = "constexpr int kGroupTPI = 4;"
 
 
-def build_variant(build, label, edit, workdir):
-    """nvcc each wide source, its text passed through edit(name, text) for
-    itself and for windowed.cuh (a quoted include finds the copy beside
-    it first), into workdir/label; returns {stem: (.so, log)}."""
+def build_variant(build, label, edit, workdir, stems):
+    """nvcc each source of stems, its text passed through edit(name, text)
+    for itself and for windowed.cuh (a quoted include finds the copy
+    beside it first), into workdir/label; returns {stem: (.so, log)}."""
     vdir = Path(workdir) / label
     vdir.mkdir(parents=True)
     (vdir / "windowed.cuh").write_text(
@@ -60,8 +61,8 @@ def build_variant(build, label, edit, workdir):
             raise RuntimeError(f"nvcc {label} {stem}:\n{r.stdout}{r.stderr}")
         return stem, (str(so), r.stdout + r.stderr)
 
-    with ThreadPoolExecutor(len(STEMS)) as ex:
-        return dict(ex.map(one, STEMS))
+    with ThreadPoolExecutor(len(stems)) as ex:
+        return dict(ex.map(one, stems))
 
 
 def variants(tpi):
@@ -69,7 +70,8 @@ def variants(tpi):
     def one_thread(name, text):
         if name == "windowed.cuh":
             return text
-        return text.replace("ECC_WG_ENTRY_POINT(", "ECC_W_ENTRY_POINT(")
+        return (text.replace("ECC_WG_ENTRY_POINT(", "ECC_W_ENTRY_POINT(")
+                .replace("ECC_EDG_ENTRY_POINT(", "ECC_ED_ENTRY_POINT("))
 
     def group_tpi(name, text):
         if name != "windowed.cuh":
@@ -84,14 +86,15 @@ def variants(tpi):
 
 
 def ptxas_summary(log: str) -> dict:
-    """Kernel (K, a_kind, pairs) -> [registers, spill store bytes, stack
-    frame bytes]."""
+    """Kernel (K, a_kind, pairs; "ed_" before the Edwards ones) ->
+    [registers, spill store bytes, stack frame bytes]."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             km = re.search(r"kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
-            key = "k{}_a{}_p{}".format(*km.groups()) if km else None
+            ed = "ed_" if "_ed_" in m.group(1) else ""
+            key = ed + "k{}_a{}_p{}".format(*km.groups()) if km else None
             continue
         if key is None:
             continue
@@ -110,6 +113,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--tpi", type=int, default=0)
+    ap.add_argument("--curves", default=",".join(CURVES))
     args = ap.parse_args()
     edits = variants(args.tpi)
     import ctypes
@@ -118,7 +122,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    from libecc_tpu_torch.curves import params, scalar_mul
+    from libecc_tpu_torch.curves import edwards, params, scalar_mul
+    from libecc_tpu_torch.curves.edwards import ExtPoint
     from libecc_tpu_torch.curves.shortw import PrjPoint
     from libecc_tpu_torch.nn import core as nn
     from libecc_tpu_torch.ops.cuda import build, megamul
@@ -129,12 +134,19 @@ def main() -> int:
                          text=True).stdout.strip()
     print(smi)
     dev = torch.device("cuda")
+    curves = {}
+    for name in args.curves.split(","):
+        ed = name.startswith("ED")
+        curves[name] = (edwards.get_edwards_curve(name) if ed
+                        else params.get_curve(name), ed)
+    stems = sorted({megamul.instance(c, "ed" if ed else "w", npairs)[2]
+                    for c, ed in curves.values() for npairs in (1, 2)})
     t0 = time.perf_counter()
-    build.library(STEMS[0])          # the kernels that make the tables
+    build.library(stems[0])          # the kernels that make the tables
     wd = build.BUILD_DIR / "group_loop"
     shutil.rmtree(wd, ignore_errors=True)
     with ThreadPoolExecutor(len(edits)) as ex:
-        futs = {lb: ex.submit(build_variant, build, lb, e, wd)
+        futs = {lb: ex.submit(build_variant, build, lb, e, wd, stems)
                 for lb, e in edits.items()}
         builds = {lb: f.result() for lb, f in futs.items()}
     libs = {lb: {s: ctypes.CDLL(so) for s, (so, _) in b.items()}
@@ -147,10 +159,15 @@ def main() -> int:
     order = [*edits, *reversed(list(edits))]
     first = order[0]
     rows = []
-    for name in CURVES:
-        c = params.get_curve(name)
+    for name, (c, ed) in curves.items():
         p, q = c.fp_ctx.p_int, c.q
-        wc = H.WCurve(p, c.a, c.b, c.gx, c.gy, q, c.h)
+        cls, model = (ExtPoint, "ed") if ed else (PrjPoint, "w")
+        if ed:
+            hc = H.EdCurve(p, c.a, c.d, c.gx, c.gy, q, c.h)
+            base_mul = lambda k: H.ed_base_mul(hc, k)  # noqa: E731
+        else:
+            wc = H.WCurve(p, c.a, c.b, c.gx, c.gy, q, c.h)
+            base_mul = lambda k: H.ec_base_mul(wc, k)  # noqa: E731
 
         def rand(mod, n):
             nb = (mod.bit_length() + 7) // 8 + 8
@@ -158,18 +175,23 @@ def main() -> int:
                     for _ in range(n)]
 
         def points():
-            base = [H.ec_base_mul(wc, 1 + v % (q - 1)) for v in rand(q, 64)]
+            """N points (64 distinct ones) with random Z: (mX : mY : m),
+            or (mx : my : m : mxy) on an Edwards curve."""
+            base = [base_mul(1 + v % (q - 1)) for v in rand(q, 64)]
             lam = [1 + v % (p - 1) for v in rand(p, N)]
             pts = [base[i % 64] for i in range(N)]
-            return PrjPoint(*[c.fp_ctx.from_ints(col, dev) for col in (
-                [P_[0] * m % p for P_, m in zip(pts, lam)],
-                [P_[1] * m % p for P_, m in zip(pts, lam)], lam)])
+            cols = [[P_[0] * m % p for P_, m in zip(pts, lam)],
+                    [P_[1] * m % p for P_, m in zip(pts, lam)], lam]
+            if ed:
+                cols.append([P_[0] * P_[1] * m % p
+                             for P_, m in zip(pts, lam)])
+            return cls(*[c.fp_ctx.from_ints(col, dev) for col in cols])
 
         tabs = [scalar_mul._build_mul_table(c, points()) for _ in range(2)]
         digs = [scalar_mul._window_digits(nn.upload(nn.batch_to_limbs(
             rand(q, N), c.q_ctx.k), dev), c.scalar_bits()) for _ in range(2)]
         for npairs in (1, 2):
-            kname, _, stem = megamul.instance(c, "w", npairs)
+            kname, _, stem = megamul.instance(c, model, npairs)
             times, outs = {lb: [] for lb in libs}, {}
             for lb in order:
                 saved = build._LIBS[stem]
@@ -177,7 +199,7 @@ def main() -> int:
                 try:
                     def run():
                         return megamul._launch(c, tabs[:npairs],
-                                               digs[:npairs], PrjPoint)
+                                               digs[:npairs], cls)
                     outs[lb] = run()
                     torch.cuda.synchronize()
                     a = torch.cuda.Event(enable_timing=True)

@@ -579,7 +579,9 @@ def _wrong_a(struct, kind):
     ("windowed_mul_k14_ga_w4", "windowed_wei448", "WEI448", "w1",
      point.A_M3),
     ("straus_mul_k14_ga_w4", "straus_wei448", "WEI448", "w2", point.A_ZERO),
-    ("ed_dbln_add_k14", "edpoint", "ED448", "ed_dbln", edpoint.A_M1)])
+    ("ed_dbln_add_k14", "edpoint", "ED448", "ed_dbln", edpoint.A_M1),
+    ("windowed_mul_ed_k14_w4", "windowed_ed448", "ED448", "ed1",
+     edpoint.A_M1)])
 def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
                                                 model, wrong):
     """Each C entry point at K = 17, each wide Straus one, the entry
@@ -608,7 +610,7 @@ def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
             ctypes.byref(cs), point.ptr_array([one] * 2 * ncoord),
             point.ptr_array(outs), 3, 2, stream)
     else:
-        npairs = 1 if model == "w1" else 2
+        npairs = int(model[-1])                 # w1, w2, ed1, ed2
         tab = torch.zeros((16, ncoord, k, 3), dtype=torch.int32, device=dev)
         digs = torch.zeros((-(-c.scalar_bits() // 4), 3), dtype=torch.int32,
                            device=dev)
@@ -619,62 +621,78 @@ def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
     assert rc == 1                                     # cudaErrorInvalidValue
 
 
-# -- kernels 4 and 6 on the group loop (a group of threads a lane, K >= 12) --
+# -- kernels 4 and 6 (K >= 12) and 7 and 6-ed (K = 14) on the group loop --
 
 # one curve for each (K, a) built on the group loop
 GROUP_CURVES = ["P-384", "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1",
-                "BRAINPOOLP512R1", "P-521"]
+                "BRAINPOOLP512R1", "P-521", "ED448"]
+
+
+def group_loop_lanes(c, dev, nmax=161):
+    """The group-loop tests' inputs on nmax lanes: point pairs P, Q (the
+    identity on lanes 1 and 2 of P, the edge lanes of _point_pairs or
+    _ed_pairs) and scalars us, vs (the window edge scalars first in us,
+    from lane 2 in vs)."""
+    rng = np.random.RandomState(81)
+    if isinstance(c, EdwardsCurve):
+        P, Q = _ed_pairs(c, rng, nmax, dev)
+    else:
+        P, Q = _point_pairs(c, rng, nmax, dev)
+    edges = H.window_edge_scalars(c.q)
+    us = edges + [2, 1 << 100] + _ints(rng, nmax - len(edges) - 2, c.q)
+    vs = [0, 5] + edges + _ints(rng, nmax - len(edges) - 2, c.q)
+    return P, Q, us, vs
 
 
 @pytest.mark.parametrize("npairs", [1, 2])
 @pytest.mark.parametrize("name", GROUP_CURVES)
 def test_group_loop_kernels_match_plain_at_ragged_n(dev, name, npairs):
     """Kernel 4 (npairs 1) and kernel 6 (npairs 2) at each (K, a) of the
-    group loop against their plain versions, bitwise, at n = 1 (one group,
-    a partial warp), 33 (a block carries 32 lanes: a partial block) and
-    161 (the last of six blocks holds one lane); at K = 14 and 17 the
-    groups' zero limbs are in play. The first lanes carry the identity
-    (lanes 1 and 2 of P) and the window edge scalars. One plain run at
-    161 lanes serves the three, the lanes being independent. With n = 0
-    the C entry point returns 0 and so launched nothing: a launch of no
-    blocks is refused (cudaErrorInvalidConfiguration)."""
+    group loop, and kernels 7 and 6-ed on Ed448, against their plain
+    versions, bitwise, at n = 1 (one group, a partial warp), 33 (a block
+    carries 32 lanes: a partial block) and 161 (the last of six blocks
+    holds one lane); at K = 14 and 17 the groups' zero limbs are in play.
+    The first lanes carry the identity (lanes 1 and 2 of P) and the window
+    edge scalars. One plain run at 161 lanes serves the three, the lanes
+    being independent. With n = 0 the C entry point returns 0 and so
+    launched nothing: a launch of no blocks is refused
+    (cudaErrorInvalidConfiguration)."""
     import ctypes
-    c = params.get_curve(name)
-    rng = np.random.RandomState(81)
+    ed = name.startswith("ED")
+    c = edwards.get_edwards_curve(name) if ed else params.get_curve(name)
+    cls, model = (ExtPoint, "ed") if ed else (PrjPoint, "w")
     nmax = 161
-    P, Q = _point_pairs(c, rng, nmax, dev)
-    edges = H.window_edge_scalars(c.q)
-    us = edges + [2, 1 << 100] + _ints(rng, nmax - len(edges) - 2, c.q)
-    vs = [0, 5] + edges + _ints(rng, nmax - len(edges) - 2, c.q)
+    P, Q, us, vs = group_loop_lanes(c, dev, nmax)
     nbits = c.scalar_bits()
 
     def inputs(n):
         tabs = [scalar_mul._build_mul_table(
-            c, PrjPoint(*[v[:, :n].contiguous() for v in T]))
+            c, cls(*[v[:, :n].contiguous() for v in T]))
             for T in (P, Q)[:npairs]]
         digs = [scalar_mul._window_digits(nn.upload(nn.batch_to_limbs(
             m[:n], c.q_ctx.k), dev), nbits) for m in (us, vs)[:npairs]]
         return tabs, digs
 
     tabs, digs = inputs(nmax)
-    want = megamul._mul_plain(c, tabs, digs, PrjPoint)
-    name_k = megamul.kernel_name_of(c, npairs)
+    want = megamul._mul_plain(c, tabs, digs, cls)
+    name_k = megamul.kernel_name_of(c, npairs, model)
     for n in (1, 33, nmax):
         tabs, digs = inputs(n)
         before = megamul.launches[name_k]
-        got = (megamul.windowed_mul(c, tabs[0], digs[0], PrjPoint)
+        got = (megamul.windowed_mul(c, tabs[0], digs[0], cls)
                if npairs == 1 else
                megamul.straus_mul(c, tabs[0], digs[0], tabs[1], digs[1],
-                                  PrjPoint))
+                                  cls))
         assert megamul.launches[name_k] == before + 1
         assert all(torch.equal(g, w[:, :n]) for g, w in zip(got, want)), n
-    _, cname, stem = megamul.instance(c, "w", npairs)
-    k = c.fp_ctx.k
-    tab = torch.zeros((16, 3, k, 0), dtype=torch.int32, device=dev)
+    _, cname, stem = megamul.instance(c, model, npairs)
+    k, ncoord = c.fp_ctx.k, len(cls._fields)
+    tab = torch.zeros((16, ncoord, k, 0), dtype=torch.int32, device=dev)
     dig = torch.zeros((digs[0].shape[0], 0), dtype=torch.int32, device=dev)
-    outs = [torch.zeros((k, 0), dtype=torch.int32, device=dev)] * 3
+    outs = [torch.zeros((k, 0), dtype=torch.int32, device=dev)] * ncoord
+    cs = edpoint.curve_struct(c) if ed else point.curve_struct(c)
     rc = getattr(megamul._lib(stem), cname)(
-        ctypes.byref(point.curve_struct(c)), point.ptr_array([dig] * npairs),
+        ctypes.byref(cs), point.ptr_array([dig] * npairs),
         dig.shape[0], point.ptr_array([tab] * npairs), point.ptr_array(outs),
         0, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     assert rc == 0
