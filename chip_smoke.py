@@ -41,7 +41,8 @@ and drives these paths at batch 8192, bytes in:
    (SHA-384) and BrainpoolP512t1 (SHA-512), and at batch 256 on the six
    curves that share an instance; ecfsdsa_verify_batch on P-521
    (SHA-512), P-224, BrainpoolP384r1 and BrainpoolP512t1, and at batch
-   1024 on the other new kernel-6 instances;
+   1024 on the other new kernel-6 instances (whose kernel-6 rows are
+   timed and checked on the batch's tables and digits tiled to 8192);
 7. the cofactor > 1 curves (kernels 2-4 and 6 at K = 14, generic a, on
    WEI448): the q*P subgroup check of key import (WEI448 at batch 8192,
    timed; WEI25519, GOST 2012 256 A and 512 C at 256: keys d*G + T, T
@@ -1746,9 +1747,11 @@ def run(torch) -> int:
     # of them 0, and the time depends on the digits: at K = 12 to 16 the
     # kernel takes 14-29% longer on an H100 when every lane's scalars are
     # full-size.
-    def straus_row(label, batch_tabs, per_win):
+    def straus_row(label, batch_tabs, per_win, tile=1):
         """A kernel-6 or 6-ed row's arguments on a batch's own tables and
-        digits (batch_tabs) with straus_in[label]'s special lanes."""
+        digits (batch_tabs) with straus_in[label]'s special lanes, the
+        lanes repeated tile times (a batch smaller than the path's 8192
+        tiled to it, as the ECDSA fixtures are)."""
         cv, _, _, _, cls, _, _, check_tabs, nfix = straus_in[label]
         tabs = []
         for b, t in zip(batch_tabs, check_tabs):
@@ -1756,7 +1759,7 @@ def run(torch) -> int:
                    f"{tuple(b.shape)} differ in shape from {tuple(t.shape)}")
             b = b.clone()
             b[..., :nfix] = t[..., :nfix]
-            tabs.append(b)
+            tabs.append(b.repeat(*[1] * (b.dim() - 1), tile))
         k_, ncoord = cv.fp_ctx.k, len(cls._fields)
         fe_, nwin, n = 4 * k_, tabs[1].shape[0], tabs[0].shape[-1]
         return (lambda: megamul.straus_mul(cv, *tabs, cls),
@@ -1915,7 +1918,7 @@ def run(torch) -> int:
     # rejects with one flipped bit of s or one changed message; kernel 6 is
     # checked on straus_check's special lanes against the host oracle, then
     # timed and held against its plain version on the batch's own tables
-    # with those lanes written in.
+    # with those lanes written in, at FSDSA_SMALL tiled to BATCH lanes.
     f_curves = {"SECP521R1": (*w_curves["SECP521R1"][:2],
                               *w_curves["SECP521R1"][4:]), **r_curves}
     f_report = {}
@@ -1961,8 +1964,9 @@ def run(torch) -> int:
             print(f"ecfsdsa {label} batch {n} stage ms:", json.dumps(bd))
         note_sources(cv)
         time_kernels({sname: straus_row(label, marked["table"],
-                                        W_PER_WINDOW[a_tag(cv)][1])},
-                     path, per, f"ECFSDSA {label} batch verification", n)
+                                        W_PER_WINDOW[a_tag(cv)][1],
+                                        BATCH // n)},
+                     path, per, f"ECFSDSA {label} batch verification", BATCH)
         note_launches(set(w_names(cv).values()), path,
                       f"ECFSDSA {label} batch verification")
 

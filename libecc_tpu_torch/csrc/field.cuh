@@ -8,10 +8,11 @@
 //
 // These __device__ functions are kernel 1's body and, through ThreadField,
 // the field layer of the kernels where one thread carries a lane: kernels
-// 2, 3, 5 and kernels 4 and 6 at K <= 10 (point.cuh, windowed.cuh), and
-// the Edwards kernels 8a, 8b, 8c and 7 and 6-ed at K = 8 (edpoint.cuh).
-// groupfield.cuh holds the field where a group of threads carries a lane
-// (kernels 4 and 6 at K >= 12, 7 and 6-ed at K = 14). They replace the
+// 2, 3 and 5 (point.cuh), and the Edwards kernels 8a, 8b, 8c and 7 and
+// 6-ed at K = 8 (edpoint.cuh, windowed.cuh); kernels 4 and 6 take it only
+// in scripts/time_group_loop.py's one-thread build. groupfield.cuh holds
+// the field where a group of threads carries a lane (kernels 4 and 6 at
+// every K, 7 and 6-ed at K = 14). They replace the
 // TPU's relaxed 15-bit-limb arithmetic
 // (libecc_tpu/ops/pallas/mont.py:_mont_body_refs), whose float32
 // exact-carry trick exists for the TPU's vector unit; Hopper has 32x32->64

@@ -1,10 +1,11 @@
-// The field of kernels 4 and 6 at K >= 12 and of kernels 7 and 6-ed at
+// The field of kernels 4 and 6 at every K and of kernels 7 and 6-ed at
 // K = 14: a group of TPI neighbouring threads of a warp carries one lane
-// (sm_90a).
+// (sm_90a); windowed.cuh's GroupShape sets TPI and INLINE at each K.
 //
 // Thread j of a group (j = 0 .. TPI-1) holds limbs j*L .. j*L+L-1 of every
-// field element, L = ceil(K / TPI); the limbs from K up to L*TPI (K = 14
-// and 17 at TPI = 4) are zero in every operand, in p and in every result.
+// field element, L = ceil(K / TPI); the limbs from K up to L*TPI (K = 7,
+// 14 and 17 at TPI = 4) are zero in every operand, in p and in every
+// result.
 // Values, layout and domain are field.cuh's: canonical residues in the
 // Montgomery domain R = 2^(32K), so a group's result is bit for bit the
 // one-thread field's and the plain version's.
@@ -12,9 +13,11 @@
 // Why: one thread a lane gives 8192 lanes 64 blocks of 128 threads, 64 of
 // the H100's 132 SMs with one warp a scheduler, and a K-limb product is a
 // dependent chain of 2K^2 multiply-adds in one thread (255 registers and
-// spills at K >= 14). Four threads a lane give 256 blocks, every SM two of
-// them, each thread's share of an element 3 to 5 registers and each carry
-// chain L limbs long.
+// spills at K >= 14). Four threads a lane give 256 blocks of 128, every
+// SM two of them, two threads 256 blocks of 64; each thread's share of an
+// element is L = 2 to 5 registers and each carry chain L limbs long. Where
+// four threads would pad K (6 to 8 limbs, 10 to 12) two threads ran
+// faster on an H100 80GB HBM3 at 700 W (windowed.cuh's GroupShape).
 //
 // The product is the operand-scanning Montgomery form (CIOS) spread over
 // the group, one row per limb a_i of a, exactly K rows (so R stays
@@ -31,8 +34,10 @@
 // group computes a pair row by row together, so that one product's
 // multiply-adds issue while the other's shuffles wait: on the H100 the
 // window loop ran 3-12% faster so than one product at a time. A product
-// is a call (gf_mul, gf_mul2), one copy of its code for the whole loop:
-// up to 9% faster than inlined at K >= 14, up to 5% slower at K = 12.
+// is a call (gf_mul, gf_mul2), one copy of its code for the whole loop,
+// or inlined (INLINE): on the H100 (700 W) calls were up to 9% faster at
+// K >= 14, up to 5% slower at K = 12, 2-7% slower at K = 6 to 8 with four
+// threads a lane and 1.3-1.45x faster at K = 7, 8 and 10 with two.
 // Additions, subtractions, the conditional subtraction and "is zero" take
 // their carries, borrows and answers from the same votes, so all TPI
 // threads take the same select.
@@ -61,7 +66,9 @@ struct Slice {
   uint32_t v[L];
 };
 
-template <int K, int TPI>
+// INLINE: each product inlined where it is used (mul_rows) rather than a
+// call of gf_mul or gf_mul2.
+template <int K, int TPI, bool INLINE = false>
 struct GroupField;
 
 // The product and two independent products as calls of their operands,
@@ -75,12 +82,12 @@ __device__ __noinline__ Two<Slice<L>> gf_mul2(Slice<L> a, Slice<L> b,
                                               Slice<L> c, Slice<L> d,
                                               Slice<L> p, uint32_t pinv);
 
-template <int K, int TPI>
+template <int K, int TPI, bool INLINE>
 struct GroupField {
   static_assert(TPI >= 2 && TPI <= 16 && (TPI & (TPI - 1)) == 0,
                 "a group is 2, 4, 8 or 16 threads of one warp");
   static constexpr int kLimbs = K;
-  static constexpr bool kInlineProducts = false;  // gf_mul, gf_mul2 calls
+  static constexpr bool kInlineProducts = INLINE;  // else gf_mul, gf_mul2
   static constexpr int L = (K + TPI - 1) / TPI;
   static constexpr int KP = L * TPI;         // limbs with the zero padding
   using E = Slice<L>;
@@ -346,12 +353,26 @@ struct GroupField {
   }
 
   __device__ __forceinline__ E mul(const E& a, const E& b) const {
-    return gf_mul<K, TPI>(a, b, p, pinv);
+    if constexpr (INLINE) {
+      const E x[1] = {a}, y[1] = {b};
+      E o[1];
+      mul_rows<1>(x, y, o);
+      return o[0];
+    } else {
+      return gf_mul<K, TPI>(a, b, p, pinv);
+    }
   }
   // two independent products, computed together
   __device__ __forceinline__ Two<E> mul2(const E& a, const E& b, const E& c,
                                          const E& d) const {
-    return gf_mul2<K, TPI>(a, b, c, d, p, pinv);
+    if constexpr (INLINE) {
+      const E x[2] = {a, c}, y[2] = {b, d};
+      E o[2];
+      mul_rows<2>(x, y, o);
+      return {o[0], o[1]};
+    } else {
+      return gf_mul2<K, TPI>(a, b, c, d, p, pinv);
+    }
   }
   __device__ __forceinline__ Two<E> sqr2(const E& a, const E& c) const {
     return mul2(a, a, c, c);

@@ -18,18 +18,19 @@
 // and 52 for generic a, 26 and 40 for a = 0; at 8192 lanes about
 // 0.21-0.27 ms of the card's multiply-add issue at K = 6, 0.34-0.43 ms at
 // K = 7 and 0.98-1.21 ms at K = 10; chip_smoke.py computes the bound of
-// each run. Design: kernel 4's, the pair loop rolled.
+// each run. Design: kernel 4's (windowed_small.cu: the group loop in
+// GroupShape's shape at each K), the pair loop rolled.
 #include "windowed.cuh"
 
 extern "C" {
 
-ECC_W_ENTRY_POINT(straus_mul_k6_m3_w4, 6, 2, ecc::A_M3)
-ECC_W_ENTRY_POINT(straus_mul_k6_ga_w4, 6, 2, ecc::A_GENERIC)
-ECC_W_ENTRY_POINT(straus_mul_k6_a0_w4, 6, 2, ecc::A_ZERO)
-ECC_W_ENTRY_POINT(straus_mul_k7_m3_w4, 7, 2, ecc::A_M3)
-ECC_W_ENTRY_POINT(straus_mul_k7_ga_w4, 7, 2, ecc::A_GENERIC)
-ECC_W_ENTRY_POINT(straus_mul_k7_a0_w4, 7, 2, ecc::A_ZERO)
-ECC_W_ENTRY_POINT(straus_mul_k10_m3_w4, 10, 2, ecc::A_M3)
-ECC_W_ENTRY_POINT(straus_mul_k10_ga_w4, 10, 2, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(straus_mul_k6_m3_w4, 6, 2, ecc::A_M3)
+ECC_WG_ENTRY_POINT(straus_mul_k6_ga_w4, 6, 2, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(straus_mul_k6_a0_w4, 6, 2, ecc::A_ZERO)
+ECC_WG_ENTRY_POINT(straus_mul_k7_m3_w4, 7, 2, ecc::A_M3)
+ECC_WG_ENTRY_POINT(straus_mul_k7_ga_w4, 7, 2, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(straus_mul_k7_a0_w4, 7, 2, ecc::A_ZERO)
+ECC_WG_ENTRY_POINT(straus_mul_k10_m3_w4, 10, 2, ecc::A_M3)
+ECC_WG_ENTRY_POINT(straus_mul_k10_ga_w4, 10, 2, ecc::A_GENERIC)
 
 }  // extern "C"

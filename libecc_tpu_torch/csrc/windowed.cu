@@ -17,8 +17,9 @@
 // registers across all windows; only the tables and the digits are read
 // from device memory and the result written once. The loop is a template
 // over K in windowed.cuh, built here at K = 8 for every a; windowed.cuh
-// lists the other instances. At K >= 12 a group of four threads carries a
-// lane (windowed.cuh's group loop, groupfield.cuh).
+// lists the other instances. A group of threads carries a lane
+// (windowed.cuh's group loop in the shape GroupShape sets at each K,
+// groupfield.cuh).
 //
 // Twisted Edwards (kernels 7 and 6-ed, extended): the accumulator starts
 // at (0 : 1 : 1 : 0); per window, most significant first, w
@@ -52,40 +53,33 @@
 // no T), plus the table bytes: each
 // window reads one 3K- or 4K-word entry per pair and lane, 64 x 96 or
 // 64 x 128 bytes per pair at K = 8, so table traffic is small beside the
-// arithmetic. Design up to K = 10: one thread per lane, accumulator and
-// all formula temporaries in registers, table entries read straight from
-// device memory (coalesced across lanes of a warp for one limb). The pair
-// loop stays rolled so that the second pair adds no code and few
-// registers. At K >= 12 one thread a lane would run each product as one
-// long chain on 64 of the 132 SMs and spill (an extended point is 56
-// registers at K = 14), so kernels 4 and 6 there and the Edwards kernels
-// at K = 14 run the group loop instead: four threads a lane, each with a
-// quarter of every element, so that 8192 lanes fill every SM and no
-// thread needs more than 128 registers (the notes in groupfield.cuh).
-// Staging the tables in shared memory (1.5 or 2 KB a lane and pair) is
-// later work.
+// arithmetic. Design: the accumulator and all formula temporaries in
+// registers, table entries read straight from device memory (coalesced
+// across lanes of a warp for one limb), the pair loop rolled so that the
+// second pair adds no code and few registers. One thread a lane (kernels 7
+// and 6-ed here) runs each product as one long chain, and at 8192 lanes
+// fills 64 of the 132 SMs with one warp a scheduler: kernels 4 and 6 so ran
+// at 10.9-15x their bounds at every K on an H100 80GB HBM3 at 700 W, and
+// spilled at K >= 14 (an extended point is 56 registers at K = 14). So
+// kernels 4 and 6 at every K and the Edwards kernels at K = 14 run the
+// group loop instead: two or four threads a lane, each with a share of
+// every element, so that 8192 lanes give every SM two to four times the
+// warps and no thread needs more than 128 registers (the notes in
+// groupfield.cuh; the shape at each K in windowed.cuh's GroupShape).
+// Kernels 7 and 6-ed at K = 8 stay on one thread a lane: their group loop
+// is later work. Staging the tables in shared memory (1.5 or 2 KB a lane
+// and pair) is later work.
 #include "windowed.cuh"
 
 extern "C" {
 
-// digits: NPAIRS pointers to int32[nwin][n] (MSW first); tables: NPAIRS
-// pointers to uint32[16][3][8][n]; out: x, y, z (each uint32[8][n]).
-// Kernel 4: m*P (one pair).
-int windowed_mul_k8_w4(const ecc::CurveCtx<8>* C,
-                       const int32_t* const* digits, int nwin,
-                       const uint32_t* const* tables, uint32_t* const* out,
-                       long long n, void* stream) {
-  return ecc::launch_w<8, 1, ecc::A_M3, ecc::A_ZERO, ecc::A_GENERIC>(
-      C, digits, nwin, tables, out, n, stream);
-}
-
-// Kernel 6: u*P + v*Q; digits = (u's, v's), tables = (P's, Q's).
-int straus_mul_k8_w4(const ecc::CurveCtx<8>* C, const int32_t* const* digits,
-                     int nwin, const uint32_t* const* tables,
-                     uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_w<8, 2, ecc::A_M3, ecc::A_ZERO, ecc::A_GENERIC>(
-      C, digits, nwin, tables, out, n, stream);
-}
+// Kernel 4 (m*P, one pair) and kernel 6 (u*P + v*Q; digits = (u's, v's),
+// tables = (P's, Q's)) for every a, with uint32[16][3][8][n] tables and out
+// x, y, z (ECC_WG_ENTRY_POINT: the group loop).
+ECC_WG_ENTRY_POINT(windowed_mul_k8_w4, 8, 1, ecc::A_M3, ecc::A_ZERO,
+                   ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(straus_mul_k8_w4, 8, 2, ecc::A_M3, ecc::A_ZERO,
+                   ecc::A_GENERIC)
 
 // Kernel 7 (m*P) and kernel 6-ed (u*P + v*Q) at a = -1 (Ed25519), with
 // uint32[16][4][8][n] tables and out x, y, z, t (ECC_ED_ENTRY_POINT).

@@ -4,31 +4,34 @@
 // text over a field type (the formulas of point.cuh and edpoint.cuh are
 // templates over it) and comes in two forms:
 //
+// * a group of threads a lane (windowed_mul_group_kernel,
+//   windowed_mul_ed_group_kernel; groupfield.cuh's GroupField), its shape
+//   at each K set by GroupShape below: kernels 4 and 6 at every (K, a),
+//   windowed.cu at K = 8 (every a), windowed_small.cu and straus_small.cu
+//   at K = 6 and 7 (every a) and K = 10 (a = -3, generic a),
+//   windowed_wide.cu and straus_wide.cu at K = 12 (a = -3) and K = 16
+//   (generic a), windowed_wide_alt.cu and straus_wide_alt.cu at K = 12
+//   (generic a) and K = 16 (a = -3), windowed_wei448.cu and
+//   straus_wei448.cu at K = 14 (generic a: WEI448), windowed_p521.cu and
+//   straus_p521.cu at K = 17 (a = -3: P-521); and the Edwards kernels 7 in
+//   windowed_ed448.cu and 6-ed in straus_ed448.cu at K = 14 (a = 1: Ed448);
 // * one thread a lane (windowed_mul_kernel, windowed_mul_ed_kernel;
-//   field.cuh's ThreadField): windowed.cu builds kernels 4 and 6 at K = 8
-//   (every a; one and two pairs) and 7 and 6-ed at K = 8 (a = -1),
-//   windowed_small.cu and straus_small.cu kernels 4 and 6 at K = 6 and 7
-//   (every a) and K = 10 (a = -3, generic a);
-// * a group of kGroupTPI = 4 threads a lane (windowed_mul_group_kernel,
-//   windowed_mul_ed_group_kernel; groupfield.cuh's GroupField), every
-//   instance at K >= 12: windowed_wide.cu and straus_wide.cu at K = 12
-//   (a = -3) and K = 16 (generic a), windowed_wide_alt.cu and
-//   straus_wide_alt.cu at K = 12 (generic a) and K = 16 (a = -3),
-//   windowed_wei448.cu and straus_wei448.cu at K = 14 (generic a:
-//   WEI448), windowed_p521.cu and straus_p521.cu at K = 17 (a = -3:
-//   P-521), and the Edwards kernels 7 in windowed_ed448.cu and 6-ed in
-//   straus_ed448.cu at K = 14 (a = 1: Ed448).
+//   field.cuh's ThreadField): kernels 7 and 6-ed at K = 8 (a = -1:
+//   Ed25519) in windowed.cu. The short-Weierstrass form stays for
+//   scripts/time_group_loop.py, which builds every entry point of kernels
+//   4 and 6 in it (ECC_W_ENTRY_POINT) as the measure of the group loop.
 //
 // Each file is one nvcc process of the parallel build.
 //
 // Bound on the H100: integer multiply-add issue (the design notes are in
 // windowed.cu). One thread a lane, 8192 lanes fill 64 of the 132 SMs with
 // one warp a scheduler and run each product as one thread's chain of 2K^2
-// multiply-adds; at K >= 12 that chain and 255 registers (spilling at
-// K >= 14) set the time at 12-15x the bound. The group loop gives every
-// SM two blocks of 128 threads, a thread 3 to 5 limbs of each element and
-// carry chains of that length, needs no more than 128 registers, and on
-// the H100 runs kernels 4 and 6 at 3.6-4.6x the bound.
+// multiply-adds: 10.9-15x the bound at every K, with 255 registers and
+// spills at K >= 14. The group loop gives the SMs two or four times the
+// warps, a thread 2 to 5 limbs of each element and carry chains of that
+// length, needs no more than 128 registers, and on the H100 (80GB HBM3,
+// 700 W) runs kernels 4 and 6 at 3.6-8x the bound (the most at K = 6
+// and 7).
 #pragma once
 
 #include "edpoint.cuh"
@@ -40,12 +43,35 @@ namespace ecc {
 constexpr int kWindow = 4;
 constexpr int kEntries = 1 << kWindow;
 
-// The group loop (kernels 4 and 6 at K >= 12, 7 and 6-ed at K = 14):
-// threads a lane, threads a block, and blocks an SM for __launch_bounds__
-// (4 blocks of 128 threads cap a thread at 128 registers).
-constexpr int kGroupTPI = 4;
-constexpr int kGroupThreads = 128;
-constexpr int kGroupMinBlocks = 4;
+// The shape of the group loop: threads a lane (TPI), threads a block and
+// whether the products are inlined (INLINE) or calls of gf_mul and
+// gf_mul2. __launch_bounds__ asks for 512 / THREADS resident blocks an
+// SM, so that a thread gets at most 128 registers (on the H100 a
+// 255-register cap ran within 1% of it; PERF.md, section 6).
+template <int TPI, int THREADS, bool INLINE>
+struct Shape {
+  static_assert(THREADS % 32 == 0 && 512 % THREADS == 0,
+                "a block is whole warps and divides 512 threads");
+  static constexpr int kTPI = TPI;
+  static constexpr int kThreads = THREADS;
+  static constexpr int kMinBlocks = 512 / THREADS;
+  static constexpr bool kInline = INLINE;
+};
+
+// The group loop's shape at each K, the one place that sets it (kernels 4
+// and 6, and 7 and 6-ed at K = 14), as scripts/time_group_loop.py measured
+// it at 8192 lanes on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section
+// 6). K >= 12: four threads a lane in blocks of 128, products called. K = 6
+// and 10: two threads a lane, products called; four pad K to 8 and 12
+// limbs, and ran 1.14-1.31x slower. K = 8: four threads a lane, products
+// inlined, 2-7% faster than calls and 2-5% faster than two threads a lane.
+// K = 7: the same shape; two threads a lane came within 2.5% either way.
+template <int K>
+struct GroupShape : Shape<4, 128, false> {};
+template <> struct GroupShape<6> : Shape<2, 64, false> {};
+template <> struct GroupShape<7> : Shape<4, 128, true> {};
+template <> struct GroupShape<8> : Shape<4, 128, true> {};
+template <> struct GroupShape<10> : Shape<2, 64, false> {};
 
 // The (digits, table) pairs of one launch: digits int32[nwin][n] MSW
 // first, table uint32[16][ncoord][K][n].
@@ -103,25 +129,28 @@ windowed_mul_kernel(const CurveCtx<K> C, const Pairs<NPAIRS> pr, int nwin,
 }
 
 // Kernels 4 and 6 where a group of TPI threads carries a lane
-// (groupfield.cuh): K >= 12. The formulas are the same templates over
-// GroupField, so the sequence of operations, and the result, is the
-// one-thread loop's. A block of kGroupThreads threads carries
-// kGroupThreads / TPI lanes; the threads past lane n - 1 (in the last
-// block) repeat lane n - 1 and do not store, so that every warp's
-// shuffles and votes see all 32 threads. Each thread of a group reads the
-// digit itself (one address for the group) and its L limb rows of the
-// entry: at one limb row the 32 / TPI lanes of a warp read adjacent words.
-template <int K, int AK, int NPAIRS, int TPI>
-__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
+// (groupfield.cuh), in GroupShape<K>. The formulas are the same templates
+// over GroupField, so the sequence of operations, and the result, is the
+// one-thread loop's. A block of THREADS threads carries THREADS / TPI
+// lanes; the threads past lane n - 1 (in the last block) repeat lane
+// n - 1 and do not store, so that every warp's shuffles and votes see all
+// 32 threads. Each thread of a group reads the digit itself (one address
+// for the group) and its L limb rows of the entry: at one limb row the
+// 32 / TPI lanes of a warp read adjacent words.
+template <int K, int AK, int NPAIRS>
+__global__ void __launch_bounds__(GroupShape<K>::kThreads,
+                                  GroupShape<K>::kMinBlocks)
 windowed_mul_group_kernel(const CurveCtx<K> C, const Pairs<NPAIRS> pr,
                           int nwin, uint32_t* __restrict__ ox,
                           uint32_t* __restrict__ oy,
                           uint32_t* __restrict__ oz, long long n) {
-  using GF = GroupField<K, TPI>;
+  using S = GroupShape<K>;
+  using GF = GroupField<K, S::kTPI, S::kInline>;
   __shared__ uint32_t consts[GF::kSharedWords];
   GF::stage(consts, C);
   const GF f(consts, C.f.pinv);
-  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / TPI;
+  const long long g =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / S::kTPI;
   const long long lane = g < n ? g : n - 1;
   const PtOf<typename GF::E> acc = window_loop<AK>(f, pr, nwin, n, lane);
   if (g < n) {
@@ -162,16 +191,17 @@ int launch_w(const CurveCtx<K>* C, const int32_t* const* digits, int nwin,
   });
 }
 
-// The same with a group of kGroupTPI threads a lane (K >= 12).
+// The same on the group loop, in GroupShape<K>.
 template <int K, int NPAIRS, int... AKs>
 int launch_wg(const CurveCtx<K>* C, const int32_t* const* digits, int nwin,
               const uint32_t* const* tables, uint32_t* const* out,
               long long n, void* stream) {
+  using S = GroupShape<K>;
   const Pairs<NPAIRS> pr = pairs_of<NPAIRS>(digits, tables);
-  const long long lanes = kGroupThreads / kGroupTPI;   // a block's lanes
+  const long long lanes = S::kThreads / S::kTPI;   // a block's lanes
   return launch_for_a<AKs...>(C->a_kind, n, [&](auto ak) {
-    windowed_mul_group_kernel<K, decltype(ak)::value, NPAIRS, kGroupTPI>
-        <<<(unsigned)((n + lanes - 1) / lanes), kGroupThreads, 0,
+    windowed_mul_group_kernel<K, decltype(ak)::value, NPAIRS>
+        <<<(unsigned)((n + lanes - 1) / lanes), S::kThreads, 0,
            (cudaStream_t)stream>>>(*C, pr, nwin, out[0], out[1], out[2], n);
   });
 }
@@ -240,18 +270,21 @@ windowed_mul_ed_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
 
 // Kernels 7 and 6-ed where a group of TPI threads carries a lane: as
 // windowed_mul_group_kernel, with the Edwards loop and four coordinates.
-template <int K, int AK, int NPAIRS, int TPI>
-__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
+template <int K, int AK, int NPAIRS>
+__global__ void __launch_bounds__(GroupShape<K>::kThreads,
+                                  GroupShape<K>::kMinBlocks)
 windowed_mul_ed_group_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
                              int nwin, uint32_t* __restrict__ ox,
                              uint32_t* __restrict__ oy,
                              uint32_t* __restrict__ oz,
                              uint32_t* __restrict__ ot, long long n) {
-  using GF = GroupField<K, TPI>;
+  using S = GroupShape<K>;
+  using GF = GroupField<K, S::kTPI, S::kInline>;
   __shared__ uint32_t consts[GF::kSharedWords];
   GF::stage(consts, C);
   const GF f(consts, C.f.pinv);
-  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / TPI;
+  const long long g =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / S::kTPI;
   const long long lane = g < n ? g : n - 1;
   const ExtOf<typename GF::E> acc = ed_window_loop<AK>(f, pr, nwin, n, lane);
   if (g < n) {
@@ -263,7 +296,7 @@ windowed_mul_ed_group_kernel(const EdCurveCtx<K> C, const Pairs<NPAIRS> pr,
 }
 
 // Kernels 7 and 6-ed at K with the formula set AK and NPAIRS pairs, one
-// thread a lane (launch_ed) or a group of kGroupTPI threads a lane
+// thread a lane (launch_ed) or on the group loop in GroupShape<K>
 // (launch_edg); out: x, y, z, t. A context of another a_kind returns
 // cudaErrorInvalidValue and launches nothing.
 template <int K, int AK, int NPAIRS>
@@ -283,11 +316,12 @@ template <int K, int AK, int NPAIRS>
 int launch_edg(const EdCurveCtx<K>* C, const int32_t* const* digits,
                int nwin, const uint32_t* const* tables, uint32_t* const* out,
                long long n, void* stream) {
+  using S = GroupShape<K>;
   if (C->a_kind != AK) return (int)cudaErrorInvalidValue;
-  const long long lanes = kGroupThreads / kGroupTPI;   // a block's lanes
+  const long long lanes = S::kThreads / S::kTPI;   // a block's lanes
   if (n > 0)
-    windowed_mul_ed_group_kernel<K, AK, NPAIRS, kGroupTPI>
-        <<<(unsigned)((n + lanes - 1) / lanes), kGroupThreads, 0,
+    windowed_mul_ed_group_kernel<K, AK, NPAIRS>
+        <<<(unsigned)((n + lanes - 1) / lanes), S::kThreads, 0,
            (cudaStream_t)stream>>>(*C, pairs_of<NPAIRS>(digits, tables),
                                    nwin, out[0], out[1], out[2], out[3], n);
   return (int)cudaGetLastError();
@@ -295,26 +329,27 @@ int launch_edg(const EdCurveCtx<K>* C, const int32_t* const* digits,
 
 }  // namespace ecc
 
-// The C entry point NAME of kernel 4 (NPAIRS = 1) or 6 (NPAIRS = 2) for one
-// (K, formula set AK). digits: NPAIRS pointers to int32[nwin][n] (MSW
+// The C entry point NAME of kernel 4 (NPAIRS = 1) or 6 (NPAIRS = 2) at K
+// for the formula sets listed after NPAIRS (one, or all three at K = 8),
+// one thread a lane. digits: NPAIRS pointers to int32[nwin][n] (MSW
 // first); tables: NPAIRS pointers to uint32[16][3][K][n] (for kernel 6,
 // P's then Q's); out: x, y, z (each uint32[K][n]). A context of another
 // a_kind returns cudaErrorInvalidValue and launches nothing.
-#define ECC_W_ENTRY_POINT(NAME, K, NPAIRS, AK)                             \
+#define ECC_W_ENTRY_POINT(NAME, K, NPAIRS, ...)                            \
   int NAME(const ecc::CurveCtx<K>* C, const int32_t* const* digits,       \
            int nwin, const uint32_t* const* tables, uint32_t* const* out,  \
            long long n, void* stream) {                                    \
-    return ecc::launch_w<K, NPAIRS, AK>(C, digits, nwin, tables, out, n,   \
-                                        stream);                           \
+    return ecc::launch_w<K, NPAIRS, __VA_ARGS__>(C, digits, nwin, tables,  \
+                                                 out, n, stream);          \
   }
 
-// The same entry point built on the group loop (K >= 12).
-#define ECC_WG_ENTRY_POINT(NAME, K, NPAIRS, AK)                            \
+// The same entry point built on the group loop.
+#define ECC_WG_ENTRY_POINT(NAME, K, NPAIRS, ...)                           \
   int NAME(const ecc::CurveCtx<K>* C, const int32_t* const* digits,       \
            int nwin, const uint32_t* const* tables, uint32_t* const* out,  \
            long long n, void* stream) {                                    \
-    return ecc::launch_wg<K, NPAIRS, AK>(C, digits, nwin, tables, out, n,  \
-                                         stream);                          \
+    return ecc::launch_wg<K, NPAIRS, __VA_ARGS__>(C, digits, nwin, tables, \
+                                                  out, n, stream);         \
   }
 
 // The C entry point NAME of kernel 7 (NPAIRS = 1) or 6-ed (NPAIRS = 2) for

@@ -20,20 +20,21 @@
 // place of 3 (x - delta)(x + delta)); at 8192 lanes about 0.17-0.20 ms of
 // the card's multiply-add issue at K = 6, 0.26-0.33 ms at K = 7 and
 // 0.76-0.92 ms at K = 10; chip_smoke.py computes the bound of each run.
-// Design: as K = 8, one thread per lane, the accumulator and the formula
-// in registers, the entry read from device memory by index (PUBLIC
-// scalars only).
+// Design: as K = 8, the group loop (ECC_WG_ENTRY_POINT) in the shape
+// windowed.cuh's GroupShape sets at each K (two threads a lane at K = 6
+// and 10, four at K = 7), the accumulator and the formula in registers,
+// the entry read from device memory by index (PUBLIC scalars only).
 #include "windowed.cuh"
 
 extern "C" {
 
-ECC_W_ENTRY_POINT(windowed_mul_k6_m3_w4, 6, 1, ecc::A_M3)
-ECC_W_ENTRY_POINT(windowed_mul_k6_ga_w4, 6, 1, ecc::A_GENERIC)
-ECC_W_ENTRY_POINT(windowed_mul_k6_a0_w4, 6, 1, ecc::A_ZERO)
-ECC_W_ENTRY_POINT(windowed_mul_k7_m3_w4, 7, 1, ecc::A_M3)
-ECC_W_ENTRY_POINT(windowed_mul_k7_ga_w4, 7, 1, ecc::A_GENERIC)
-ECC_W_ENTRY_POINT(windowed_mul_k7_a0_w4, 7, 1, ecc::A_ZERO)
-ECC_W_ENTRY_POINT(windowed_mul_k10_m3_w4, 10, 1, ecc::A_M3)
-ECC_W_ENTRY_POINT(windowed_mul_k10_ga_w4, 10, 1, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(windowed_mul_k6_m3_w4, 6, 1, ecc::A_M3)
+ECC_WG_ENTRY_POINT(windowed_mul_k6_ga_w4, 6, 1, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(windowed_mul_k6_a0_w4, 6, 1, ecc::A_ZERO)
+ECC_WG_ENTRY_POINT(windowed_mul_k7_m3_w4, 7, 1, ecc::A_M3)
+ECC_WG_ENTRY_POINT(windowed_mul_k7_ga_w4, 7, 1, ecc::A_GENERIC)
+ECC_WG_ENTRY_POINT(windowed_mul_k7_a0_w4, 7, 1, ecc::A_ZERO)
+ECC_WG_ENTRY_POINT(windowed_mul_k10_m3_w4, 10, 1, ecc::A_M3)
+ECC_WG_ENTRY_POINT(windowed_mul_k10_ga_w4, 10, 1, ecc::A_GENERIC)
 
 }  // extern "C"

@@ -76,18 +76,20 @@ def verify_core(curve: ShortWCurve, pub: PrjPoint, e, r, s):
 # ---------------------------------------------------------------------------
 
 def verify_batch(keys, msgs: list[bytes], sigs: list[bytes],
-                 hash_name="SHA256"):
+                 hash_name="SHA256", adata=None):
     """Verify N signatures (raw r || s) of messages hashed with hash_name
     (SHA-224/256/384/512 or SHA-3, ``common.hasher``; another name raises
-    ValueError). Returns an np.bool accept mask."""
+    ValueError). Returns an np.bool accept mask. adata is accepted and
+    ignored, as the reference does: ECDSA takes no additional data."""
     e = common.e_from_msgs(msgs, keys.curve.q_ctx, keys.device, hash_name)
     return _verify_with_e(keys, e, sigs)
 
 
 def verify_digests_batch(keys, digs: list[bytes], sigs: list[bytes],
-                         hash_name="SHA256"):
+                         hash_name="SHA256", adata=None):
     """Digest-level verify; bit-identical to verify_batch on H(m) = digs,
-    with H named by hash_name (its digest length sets the truncation)."""
+    with H named by hash_name (its digest length sets the truncation).
+    adata is ignored, as in verify_batch."""
     digest_bits = 8 * common.hasher(hash_name).digest_bytes
     words = nn.upload(common.digests_to_words(digs), keys.device)
     e = common.e_from_digest_bits(words, digest_bits, keys.curve.q_ctx)
@@ -133,13 +135,14 @@ def _fused_applicable(msgs, sigs, nb):
 
 
 def verify_batch_async(keys, msgs: list[bytes], sigs: list[bytes],
-                       hash_name="SHA256"):
+                       hash_name="SHA256", adata=None):
     """Non-blocking verify_batch: returns the accept mask as a device
     tensor without synchronising. Uniform batches hashed with SHA-224 or
     SHA-256 take the fused bytes-in path (as the reference's
     ``_fused_applicable``, :436): the raw message and signature bytes go to
     the device, and the padding, the hash and the limb unpacking run there.
-    Other hashes take the unfused path."""
+    Other hashes take the unfused path. adata is ignored, as in
+    verify_batch."""
     h = common.hasher(hash_name)
     curve, q_ctx = keys.curve, keys.curve.q_ctx
     nb = (curve.q.bit_length() + 7) // 8

@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""Time kernels 4 and 6 at K >= 12 and kernels 7 and 6-ed at K = 14
-(Ed448) on the group loop (csrc/windowed.cuh, the sources as they are)
-against the one-thread loop of the same C entry points (the sources with
+"""Time kernels 4 and 6 and kernels 7 and 6-ed at K = 14 (Ed448) on the
+group loop (csrc/windowed.cuh, the sources as they are) against the
+one-thread loop of the same C entry points (the sources with
 ECC_W_ENTRY_POINT in place of ECC_WG_ENTRY_POINT and ECC_ED_ENTRY_POINT in
-place of ECC_EDG_ENTRY_POINT), on one NVIDIA GPU. --tpi N adds a build
-with N threads a lane (windowed.cuh's kGroupTPI set to N in a copy);
---curves NAME,... times only those curves' instances and builds only their
-sources.
+place of ECC_EDG_ENTRY_POINT), on one NVIDIA GPU. --shapes
+TPIxTHREADS[i],... adds one build per shape, each with every K's group
+shape (windowed.cuh's GroupShape: threads a lane, threads a block, "i" for
+inlined products) set to it in a copy; --curves NAME,... times only those
+curves' instances and builds only their sources.
 
-Each of the 14 instances runs at N = 8192 lanes on random points (64
-distinct ones, random Z) and random scalars; every build's output is held
-bitwise against the group loop's (which the card-only tests and
-chip_smoke.py hold against the plain versions). Times are CUDA event ms a
-launch, measured in turns (the builds in order, then in reverse), and
-ptxas's registers, spills and stack of each build are printed. The builds
-go under libecc_tpu_torch/_build/group_loop/.
+Each instance runs at N = 8192 lanes on random points (64 distinct ones,
+random Z) and random scalars; every build's output is held bitwise
+against the group loop's (which the card-only tests and chip_smoke.py
+hold against the plain versions). Times are CUDA event ms a launch,
+measured in turns (the builds in order, then in reverse), and ptxas's
+registers, spills and stack of each build's kernels are printed, each
+kernel keyed by (K, a_kind, pairs) and its shape (t1: one thread a lane).
+The builds go under libecc_tpu_torch/_build/group_loop/.
 
-    python3 scripts/time_group_loop.py [--out FILE] [--tpi N]
+    python3 scripts/time_group_loop.py [--out FILE] [--shapes 2x64,4x128i]
         [--curves NAME,...]
 """
 
@@ -36,10 +38,22 @@ sys.path.insert(0, str(ROOT))
 
 N = 8192
 REPS = 3
-# one curve for each (K, a) built on the group loop
-CURVES = ["P-384", "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1",
-          "BRAINPOOLP512R1", "P-521", "ED448"]
-TPI_LINE = "constexpr int kGroupTPI = 4;"
+# one curve for each (K, a) of kernels 4 and 6, and Ed448
+CURVES = ["P-192", "BRAINPOOLP192R1", "SECP192K1", "P-224",
+          "BRAINPOOLP224R1", "SECP224K1", "P-256", "SECP256K1",
+          "BRAINPOOLP256R1", "BRAINPOOLP320T1", "BRAINPOOLP320R1", "P-384",
+          "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1", "BRAINPOOLP512R1",
+          "P-521", "ED448"]
+# windowed.cuh's group shapes: the default (K None) and each K's own
+SHAPE_RE = re.compile(r"struct GroupShape(?:<(\d+)>)? : "
+                      r"Shape<(\d+), (\d+), (true|false)>")
+
+
+def shapes_of(text: str) -> dict:
+    """K (None: every other K) -> "t{TPI}x{threads}" with "i" where the
+    products are inlined, from windowed.cuh's GroupShape lines."""
+    return {int(k) if k else None: f"t{t}x{b}" + ("i" if i == "true" else "")
+            for k, t, b, i in SHAPE_RE.findall(text)}
 
 
 def build_variant(build, label, edit, workdir, stems):
@@ -65,7 +79,7 @@ def build_variant(build, label, edit, workdir, stems):
         return dict(ex.map(one, stems))
 
 
-def variants(tpi):
+def variants(shapes):
     """Label -> edit(name, text) of each build."""
     def one_thread(name, text):
         if name == "windowed.cuh":
@@ -73,28 +87,45 @@ def variants(tpi):
         return (text.replace("ECC_WG_ENTRY_POINT(", "ECC_W_ENTRY_POINT(")
                 .replace("ECC_EDG_ENTRY_POINT(", "ECC_ED_ENTRY_POINT("))
 
-    def group_tpi(name, text):
-        if name != "windowed.cuh":
-            return text
-        assert TPI_LINE in text, TPI_LINE
-        return text.replace(TPI_LINE, f"constexpr int kGroupTPI = {tpi};")
+    def shaped(spec):
+        m = re.fullmatch(r"(\d+)x(\d+)(i?)", spec)
+        if not m:
+            raise SystemExit(f"--shapes: {spec!r} is not TPIxTHREADS[i]")
+        tpi, threads, inl = m.groups()
+
+        def edit(name, text):
+            if name != "windowed.cuh":
+                return text
+            assert SHAPE_RE.search(text), "no GroupShape in windowed.cuh"
+            return SHAPE_RE.sub(
+                lambda g: g.group(0).split(" : ")[0] + f" : Shape<{tpi}, "
+                f"{threads}, {'true' if inl else 'false'}>",
+                text)
+        return edit
 
     out = {"group": lambda name, text: text, "one-thread": one_thread}
-    if tpi:
-        out[f"tpi{tpi}"] = group_tpi
+    for spec in filter(None, shapes.split(",")):
+        out["t" + spec] = shaped(spec)
     return out
 
 
-def ptxas_summary(log: str) -> dict:
-    """Kernel (K, a_kind, pairs; "ed_" before the Edwards ones) ->
-    [registers, spill store bytes, stack frame bytes]."""
+def ptxas_summary(log: str, shapes: dict) -> dict:
+    """Kernel (K, a_kind, pairs and shape; "ed_" before the Edwards ones)
+    -> [registers, spill store bytes, stack frame bytes]; shapes is the
+    build's shapes_of."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             km = re.search(r"kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
             ed = "ed_" if "_ed_" in m.group(1) else ""
-            key = ed + "k{}_a{}_p{}".format(*km.groups()) if km else None
+            if km:
+                k = int(km.group(1))
+                shape = (shapes.get(k, shapes[None])
+                         if "group_kernel" in m.group(1) else "t1")
+                key = ed + "k{}_a{}_p{}_".format(*km.groups()) + shape
+            else:
+                key = None
             continue
         if key is None:
             continue
@@ -112,10 +143,10 @@ def ptxas_summary(log: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
-    ap.add_argument("--tpi", type=int, default=0)
+    ap.add_argument("--shapes", default="")
     ap.add_argument("--curves", default=",".join(CURVES))
     args = ap.parse_args()
-    edits = variants(args.tpi)
+    edits = variants(args.shapes)
     import ctypes
     import numpy as np
     import torch
@@ -142,18 +173,23 @@ def main() -> int:
     stems = sorted({megamul.instance(c, "ed" if ed else "w", npairs)[2]
                     for c, ed in curves.values() for npairs in (1, 2)})
     t0 = time.perf_counter()
-    build.library(stems[0])          # the kernels that make the tables
     wd = build.BUILD_DIR / "group_loop"
     shutil.rmtree(wd, ignore_errors=True)
-    with ThreadPoolExecutor(len(edits)) as ex:
+    with ThreadPoolExecutor(len(edits) + 1) as ex:
+        # the package's own build (the kernels that make the tables) beside
+        # the variants
+        base = ex.submit(build.library, stems[0])
         futs = {lb: ex.submit(build_variant, build, lb, e, wd, stems)
                 for lb, e in edits.items()}
         builds = {lb: f.result() for lb, f in futs.items()}
+        base.result()
     libs = {lb: {s: ctypes.CDLL(so) for s, (so, _) in b.items()}
             for lb, b in builds.items()}
     print(f"builds: {time.perf_counter() - t0:.1f} s")
-    regs = {lb: ptxas_summary("\n".join(log for _, log in b.values()))
-            for lb, b in builds.items()}
+    regs = {lb: ptxas_summary(
+        "\n".join(log for _, log in b.values()),
+        shapes_of((wd / lb / "windowed.cuh").read_text()))
+        for lb, b in builds.items()}
     print(json.dumps({"ptxas": regs}))
     rng = np.random.RandomState(9)
     order = [*edits, *reversed(list(edits))]

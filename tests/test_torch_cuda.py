@@ -564,6 +564,11 @@ def _wrong_a(struct, kind):
      point.A_GENERIC),
     ("straus_mul_k7_ga_w4", "straus_small", "BRAINPOOLP224R1", "w2",
      point.A_ZERO),
+    ("straus_mul_k6_m3_w4", "straus_small", "P-192", "w2", point.A_ZERO),
+    ("windowed_mul_k7_ga_w4", "windowed_small", "BRAINPOOLP224R1", "w1",
+     point.A_M3),
+    ("straus_mul_k10_ga_w4", "straus_small", "BRAINPOOLP320R1", "w2",
+     point.A_M3),
     ("straus_mul_k12_ga_w4", "straus_wide_alt", "BRAINPOOLP384R1", "w2",
      point.A_M3),
     ("straus_mul_k17_w4", "straus_p521", "P-521", "w2", point.A_GENERIC),
@@ -621,10 +626,13 @@ def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
     assert rc == 1                                     # cudaErrorInvalidValue
 
 
-# -- kernels 4 and 6 (K >= 12) and 7 and 6-ed (K = 14) on the group loop --
+# -- kernels 4 and 6 (every K) and 7 and 6-ed (K = 14) on the group loop --
 
 # one curve for each (K, a) built on the group loop
-GROUP_CURVES = ["P-384", "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1",
+GROUP_CURVES = ["P-192", "BRAINPOOLP192R1", "SECP192K1", "P-224",
+                "BRAINPOOLP224R1", "SECP224K1", "P-256", "SECP256K1",
+                "BRAINPOOLP256R1", "BRAINPOOLP320T1", "BRAINPOOLP320R1",
+                "P-384", "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1",
                 "BRAINPOOLP512R1", "P-521", "ED448"]
 
 
@@ -649,9 +657,11 @@ def group_loop_lanes(c, dev, nmax=161):
 def test_group_loop_kernels_match_plain_at_ragged_n(dev, name, npairs):
     """Kernel 4 (npairs 1) and kernel 6 (npairs 2) at each (K, a) of the
     group loop, and kernels 7 and 6-ed on Ed448, against their plain
-    versions, bitwise, at n = 1 (one group, a partial warp), 33 (a block
-    carries 32 lanes: a partial block) and 161 (the last of six blocks
-    holds one lane); at K = 14 and 17 the groups' zero limbs are in play.
+    versions, bitwise, at n = 1 (one group, a partial warp), 33 (every
+    shape of csrc/windowed.cuh's GroupShape gives a block 32 lanes: a
+    partial block) and 161 (the last of six blocks holds one lane); where
+    the group's threads do not divide K (K = 7, 14 and 17) its zero limbs
+    are in play.
     The first lanes carry the identity (lanes 1 and 2 of P) and the window
     edge scalars. One plain run at 161 lanes serves the three, the lanes
     being independent. With n = 0 the C entry point returns 0 and so

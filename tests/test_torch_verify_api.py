@@ -83,6 +83,28 @@ def test_verify_batches_pipeline(fx):
         ecdsa.verify_batch(kb, msgs, sigs, hash_name="SM3")
 
 
+def test_adata_is_accepted_and_ignored(fx):
+    """The three ECDSA verify entry points take adata, as the reference's
+    do, and ignore it: each gives the mask it gives without it (want, which
+    test_fused_path_matches_verify_batch holds both paths to)."""
+    import inspect
+
+    from libecc_tpu.sig import ecdsa as ref_ecdsa
+    names = ("verify_batch", "verify_digests_batch", "verify_batch_async")
+    for mod in (ecdsa, ref_ecdsa):
+        for name in names:
+            par = inspect.signature(getattr(mod, name)).parameters
+            assert "adata" in par and par["adata"].default is None, \
+                (mod.__name__, name)
+    kb, msgs, sigs, bad_m, bad_s, want = fx
+    ad = b"\x01\x02"
+    digs = [hashlib.sha256(m).digest() for m in bad_m]
+    got = [ecdsa.verify_batch(kb, bad_m, bad_s, adata=ad),
+           ecdsa.verify_digests_batch(kb, digs, bad_s, adata=ad),
+           ecdsa.verify_batch_async(kb, bad_m, bad_s, adata=ad).numpy()]
+    assert all(g.tolist() == want.tolist() for g in got)
+
+
 def test_entry_points_default_to_the_card():
     """Without device="cpu" an entry point runs on the card, and raises
     where there is none rather than falling back to the CPU."""
