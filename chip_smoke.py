@@ -515,10 +515,26 @@ def run(torch) -> int:
                 "device_ms": dms, "plain_ms": round(pms, 4),
                 "bound_ms": round(bms, 6), "bound_by": by}
 
+    def row_shape(name):
+        """The shape a kernel row runs in, from groupfield.cuh's tables:
+        "t{TPI}x{threads}" (with "i" where products are inlined) on the
+        group field, "t1" on one thread a lane: kernel 2 in AddShape,
+        kernels 4, 6, 7 and 6-ed in GroupShape but kernel 7 at K = 8 (one
+        thread a lane), kernels 1, 3, 5 and 8a-8c "t1"."""
+        for (k_, model, npairs, _), (kname, _, _) in megamul._KERNELS.items():
+            if kname == name:
+                if (k_, model, npairs) == (8, "ed", 1):
+                    return "t1"
+                return build.shape("GroupShape", k_)
+        for (k_, _), (_, _, tag) in point.BUILT.items():
+            if name == point._count_name("point_add", k_, tag):
+                return build.shape("AddShape", k_)
+        return "t1"
+
     def time_kernels(kern, path_counts, batch_counts, path, n=N):
         for name, args in kern.items():
             lines.append({
-                "name": name, "route": "cuda",
+                "name": name, "route": "cuda", "shape": row_shape(name),
                 "source": f"libecc_tpu_torch/csrc/{source[name]}",
                 "replaces": replaces[name], "path": path,
                 "launches": path_counts[name],
@@ -1479,7 +1495,7 @@ def run(torch) -> int:
     })
     for name, args in x_kern.items():
         lines.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "shape": row_shape(name),
             "source": f"libecc_tpu_torch/csrc/{source[name]}",
             "replaces": replaces[name], "path": "Ed448 verify",
             "launches": x_counts[name],

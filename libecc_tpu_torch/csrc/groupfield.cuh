@@ -1,6 +1,7 @@
-// The field of kernels 4 and 6 at every K and of kernels 7 and 6-ed at
-// K = 14: a group of TPI neighbouring threads of a warp carries one lane
-// (sm_90a); windowed.cuh's GroupShape sets TPI and INLINE at each K.
+// The field of kernels 2, 4 and 6 at every K and of kernels 7 and 6-ed
+// at K = 8 (6-ed) and 14: a group of TPI neighbouring threads of a warp
+// carries one lane (sm_90a); the shape tables at the end of this file
+// set TPI and INLINE at each K, one table a kernel family.
 //
 // Thread j of a group (j = 0 .. TPI-1) holds limbs j*L .. j*L+L-1 of every
 // field element, L = ceil(K / TPI); the limbs from K up to L*TPI (K = 7,
@@ -17,7 +18,7 @@
 // SM two of them, two threads 256 blocks of 64; each thread's share of an
 // element is L = 2 to 5 registers and each carry chain L limbs long. Where
 // four threads would pad K (6 to 8 limbs, 10 to 12) two threads ran
-// faster on an H100 80GB HBM3 at 700 W (windowed.cuh's GroupShape).
+// faster on an H100 80GB HBM3 at 700 W (GroupShape below).
 //
 // The product is the operand-scanning Montgomery form (CIOS) spread over
 // the group, one row per limb a_i of a, exactly K rows (so R stays
@@ -451,5 +452,51 @@ __device__ __noinline__ Two<Slice<L>> gf_mul2(Slice<L> a, Slice<L> b,
   GroupField<K, TPI>(p, pinv).template mul_rows<2>(x, y, o);
   return {o[0], o[1]};
 }
+
+// The shape of a kernel on the group field: threads a lane (TPI), threads
+// a block and whether the products are inlined (INLINE) or calls of
+// gf_mul and gf_mul2. __launch_bounds__ asks for 512 / THREADS resident
+// blocks an SM, so that a thread gets at most 128 registers (on the H100
+// a 255-register cap ran within 1% of it; PERF.md, section 6).
+template <int TPI, int THREADS, bool INLINE>
+struct Shape {
+  static_assert(THREADS % 32 == 0 && 512 % THREADS == 0,
+                "a block is whole warps and divides 512 threads");
+  static constexpr int kTPI = TPI;
+  static constexpr int kThreads = THREADS;
+  static constexpr int kMinBlocks = 512 / THREADS;
+  static constexpr bool kInline = INLINE;
+};
+
+// The shape tables, the one place that sets each kernel's shape at each
+// K, as scripts/time_group_loop.py measured them at 8192 lanes on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6).
+//
+// GroupShape: the window loops (windowed.cuh) of kernels 4 and 6 and of
+// the Edwards kernels 7 and 6-ed. K >= 12: four threads a lane in blocks
+// of 128, products called. K = 6 and 10: two threads a lane, products
+// called; four pad K to 8 and 12 limbs, and ran 1.14-1.31x slower. K = 8:
+// four threads a lane, products inlined, 2-7% faster than calls and 2-5%
+// faster than two threads a lane (Ed25519's kernel 6-ed: within 0.3% of
+// two threads with calls, 1.4% ahead of four with calls). K = 7: the same
+// shape; two threads a lane came within 2.5% either way.
+template <int K>
+struct GroupShape : Shape<4, 128, false> {};
+template <> struct GroupShape<6> : Shape<2, 64, false> {};
+template <> struct GroupShape<7> : Shape<4, 128, true> {};
+template <> struct GroupShape<8> : Shape<4, 128, true> {};
+template <> struct GroupShape<10> : Shape<2, 64, false> {};
+
+// AddShape: kernel 2, one complete add a lane (point.cuh). K = 7, 8 and
+// K >= 12: four threads a lane in blocks of 128, products inlined (0-4%
+// faster than calls; two threads a lane ran 1.13-1.50x slower at
+// K >= 12, eight 1.19-1.61x slower at every K). K = 6 and 10: two
+// threads a lane, products called, 1.08-1.21x faster than four inlined.
+// One thread a lane was slower at every K: 1.24-1.34x at K = 6 and 7,
+// 1.5-3.5x above.
+template <int K>
+struct AddShape : Shape<4, 128, true> {};
+template <> struct AddShape<6> : Shape<2, 64, false> {};
+template <> struct AddShape<10> : Shape<2, 64, false> {};
 
 }  // namespace ecc

@@ -14,11 +14,13 @@
 //
 // Bound on the H100: integer-multiply issue, as at K = 8. An a = -3 add is
 // 14 products for 9 x 68 bytes a lane, about 16,000 multiply-add slots;
-// a double 3 squares and 10 products. Design: one thread per lane, the
-// formula in registers. A point is 51 registers at K = 17, so the two
+// a double 3 squares and 10 products. Design: kernel 2 on a group of
+// threads a lane (point.cuh's point_add_group_kernel, in the shape
+// groupfield.cuh's AddShape sets; the limbs past 17 are zero), no more
+// than 128 registers and no spill. Kernels 3 and 5 run one thread a lane,
+// the formula in registers; a point is 51 registers at K = 17, so the two
 // operands and the temporaries pass the 255 a thread may hold and the
-// compiler spills (ptxas -v, chip_smoke.py prints it). Right first; the
-// spills are later work.
+// compiler spills (ptxas -v, chip_smoke.py prints it): later work.
 #include "point.cuh"
 
 extern "C" {
@@ -27,7 +29,7 @@ extern "C" {
 // a = -3 only: another a_kind returns cudaErrorInvalidValue.
 int point_add_k17(const ecc::CurveCtx<17>* C, const uint32_t* const* in,
                   uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_add<17, ecc::A_M3>(C, in, out, n, stream);
+  return ecc::launch_add_g<17, ecc::A_M3>(C, in, out, n, stream);
 }
 
 int point_dbl_k17(const ecc::CurveCtx<17>* C, const uint32_t* const* in,

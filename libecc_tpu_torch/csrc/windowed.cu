@@ -18,8 +18,8 @@
 // from device memory and the result written once. The loop is a template
 // over K in windowed.cuh, built here at K = 8 for every a; windowed.cuh
 // lists the other instances. A group of threads carries a lane
-// (windowed.cuh's group loop in the shape GroupShape sets at each K,
-// groupfield.cuh).
+// (windowed.cuh's group loop over groupfield.cuh's field, in the shape
+// its GroupShape sets at each K).
 //
 // Twisted Edwards (kernels 7 and 6-ed, extended): the accumulator starts
 // at (0 : 1 : 1 : 0); per window, most significant first, w
@@ -27,7 +27,8 @@
 // lane's entry (edpoint.cuh: add-2008-hwcd-3 for a = -1, add-2008-hwcd for
 // a = 1). Both formula sets are complete on the curves they are built for,
 // so there is no identity select. Built here for a = -1 at K = 8
-// (Ed25519, kernels 7 and 6-ed, one thread a lane); at K = 14 for a = 1
+// (Ed25519: kernel 7 on one thread a lane, 6-ed on the group loop in
+// groupfield.cuh's GroupShape<8>); at K = 14 for a = 1
 // (Ed448: q has 446 bits, so 112 windows) kernel 7 is built in
 // windowed_ed448.cu and 6-ed in straus_ed448.cu, on the group loop. With
 // kernels 1, 8a and 8b at K = 14 those are the port's counterpart of the
@@ -65,10 +66,11 @@
 // group loop instead: two or four threads a lane, each with a share of
 // every element, so that 8192 lanes give every SM two to four times the
 // warps and no thread needs more than 128 registers (the notes in
-// groupfield.cuh; the shape at each K in windowed.cuh's GroupShape).
-// Kernels 7 and 6-ed at K = 8 stay on one thread a lane: their group loop
-// is later work. Staging the tables in shared memory (1.5 or 2 KB a lane
-// and pair) is later work.
+// groupfield.cuh; the shape at each K in its GroupShape). Kernel 6-ed at
+// K = 8 runs the group loop too; kernel 7 at
+// K = 8 stays on one thread a lane: its group loop is later work. Staging
+// the tables in shared memory (1.5 or 2 KB a lane and pair) is later
+// work.
 #include "windowed.cuh"
 
 extern "C" {
@@ -81,9 +83,10 @@ ECC_WG_ENTRY_POINT(windowed_mul_k8_w4, 8, 1, ecc::A_M3, ecc::A_ZERO,
 ECC_WG_ENTRY_POINT(straus_mul_k8_w4, 8, 2, ecc::A_M3, ecc::A_ZERO,
                    ecc::A_GENERIC)
 
-// Kernel 7 (m*P) and kernel 6-ed (u*P + v*Q) at a = -1 (Ed25519), with
-// uint32[16][4][8][n] tables and out x, y, z, t (ECC_ED_ENTRY_POINT).
+// Kernel 7 (m*P; ECC_ED_ENTRY_POINT: one thread a lane) and kernel 6-ed
+// (u*P + v*Q; ECC_EDG_ENTRY_POINT: the group loop) at a = -1 (Ed25519),
+// with uint32[16][4][8][n] tables and out x, y, z, t.
 ECC_ED_ENTRY_POINT(windowed_mul_ed_k8_w4, 8, 1, ecc::ED_A_M1)
-ECC_ED_ENTRY_POINT(straus_mul_ed_k8_w4, 8, 2, ecc::ED_A_M1)
+ECC_EDG_ENTRY_POINT(straus_mul_ed_k8_w4, 8, 2, ecc::ED_A_M1)
 
 }  // extern "C"

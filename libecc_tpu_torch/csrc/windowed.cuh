@@ -6,20 +6,22 @@
 //
 // * a group of threads a lane (windowed_mul_group_kernel,
 //   windowed_mul_ed_group_kernel; groupfield.cuh's GroupField), its shape
-//   at each K set by GroupShape below: kernels 4 and 6 at every (K, a),
-//   windowed.cu at K = 8 (every a), windowed_small.cu and straus_small.cu
-//   at K = 6 and 7 (every a) and K = 10 (a = -3, generic a),
-//   windowed_wide.cu and straus_wide.cu at K = 12 (a = -3) and K = 16
+//   at each K set by groupfield.cuh's GroupShape: kernels 4 and 6 at
+//   every (K, a), windowed.cu at K = 8 (every a), windowed_small.cu and
+//   straus_small.cu at K = 6 and 7 (every a) and K = 10 (a = -3, generic
+//   a), windowed_wide.cu and straus_wide.cu at K = 12 (a = -3) and K = 16
 //   (generic a), windowed_wide_alt.cu and straus_wide_alt.cu at K = 12
 //   (generic a) and K = 16 (a = -3), windowed_wei448.cu and
 //   straus_wei448.cu at K = 14 (generic a: WEI448), windowed_p521.cu and
 //   straus_p521.cu at K = 17 (a = -3: P-521); and the Edwards kernels 7 in
-//   windowed_ed448.cu and 6-ed in straus_ed448.cu at K = 14 (a = 1: Ed448);
+//   windowed_ed448.cu and 6-ed in straus_ed448.cu at K = 14 (a = 1: Ed448)
+//   and 6-ed in windowed.cu at K = 8 (a = -1: Ed25519);
 // * one thread a lane (windowed_mul_kernel, windowed_mul_ed_kernel;
-//   field.cuh's ThreadField): kernels 7 and 6-ed at K = 8 (a = -1:
-//   Ed25519) in windowed.cu. The short-Weierstrass form stays for
+//   field.cuh's ThreadField): kernel 7 at K = 8 (a = -1: Ed25519) in
+//   windowed.cu. The short-Weierstrass form stays for
 //   scripts/time_group_loop.py, which builds every entry point of kernels
-//   4 and 6 in it (ECC_W_ENTRY_POINT) as the measure of the group loop.
+//   4, 6 and 6-ed in it (ECC_W_ENTRY_POINT, ECC_ED_ENTRY_POINT) as the
+//   measure of the group loop.
 //
 // Each file is one nvcc process of the parallel build.
 //
@@ -42,36 +44,6 @@ namespace ecc {
 
 constexpr int kWindow = 4;
 constexpr int kEntries = 1 << kWindow;
-
-// The shape of the group loop: threads a lane (TPI), threads a block and
-// whether the products are inlined (INLINE) or calls of gf_mul and
-// gf_mul2. __launch_bounds__ asks for 512 / THREADS resident blocks an
-// SM, so that a thread gets at most 128 registers (on the H100 a
-// 255-register cap ran within 1% of it; PERF.md, section 6).
-template <int TPI, int THREADS, bool INLINE>
-struct Shape {
-  static_assert(THREADS % 32 == 0 && 512 % THREADS == 0,
-                "a block is whole warps and divides 512 threads");
-  static constexpr int kTPI = TPI;
-  static constexpr int kThreads = THREADS;
-  static constexpr int kMinBlocks = 512 / THREADS;
-  static constexpr bool kInline = INLINE;
-};
-
-// The group loop's shape at each K, the one place that sets it (kernels 4
-// and 6, and 7 and 6-ed at K = 14), as scripts/time_group_loop.py measured
-// it at 8192 lanes on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section
-// 6). K >= 12: four threads a lane in blocks of 128, products called. K = 6
-// and 10: two threads a lane, products called; four pad K to 8 and 12
-// limbs, and ran 1.14-1.31x slower. K = 8: four threads a lane, products
-// inlined, 2-7% faster than calls and 2-5% faster than two threads a lane.
-// K = 7: the same shape; two threads a lane came within 2.5% either way.
-template <int K>
-struct GroupShape : Shape<4, 128, false> {};
-template <> struct GroupShape<6> : Shape<2, 64, false> {};
-template <> struct GroupShape<7> : Shape<4, 128, true> {};
-template <> struct GroupShape<8> : Shape<4, 128, true> {};
-template <> struct GroupShape<10> : Shape<2, 64, false> {};
 
 // The (digits, table) pairs of one launch: digits int32[nwin][n] MSW
 // first, table uint32[16][ncoord][K][n].
@@ -366,7 +338,8 @@ int launch_edg(const EdCurveCtx<K>* C, const int32_t* const* digits,
                                          stream);                          \
   }
 
-// The same entry point built on the group loop (K = 14).
+// The same entry point built on the group loop (6-ed at K = 8, both at
+// K = 14).
 #define ECC_EDG_ENTRY_POINT(NAME, K, NPAIRS, AK)                           \
   int NAME(const ecc::EdCurveCtx<K>* C, const int32_t* const* digits,     \
            int nwin, const uint32_t* const* tables, uint32_t* const* out,  \

@@ -21,7 +21,7 @@
 // the card's multiply-add issue at K = 6, 0.26-0.33 ms at K = 7 and
 // 0.76-0.92 ms at K = 10; chip_smoke.py computes the bound of each run.
 // Design: as K = 8, the group loop (ECC_WG_ENTRY_POINT) in the shape
-// windowed.cuh's GroupShape sets at each K (two threads a lane at K = 6
+// groupfield.cuh's GroupShape sets at each K (two threads a lane at K = 6
 // and 10, four at K = 7), the accumulator and the formula in registers,
 // the entry read from device memory by index (PUBLIC scalars only).
 #include "windowed.cuh"

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,6 +26,12 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# groupfield.cuh's shape tables (GroupShape: kernels 4, 6, 7 and 6-ed;
+# AddShape: kernel 2): a table's default line and each K's own
+SHAPES_HEADER = "groupfield.cuh"
+SHAPE_RE = re.compile(r"struct (\w+Shape)(?:<(\d+)>)? : "
+                      r"Shape<(\d+), (\d+), (true|false)>")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -124,3 +131,25 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def shapes_of(text: str) -> dict:
+    """Table -> {K (None: the table's default) -> "t{TPI}x{threads}", with
+    "i" where the products are inlined}, from the shape lines of
+    groupfield.cuh's text."""
+    out = {}
+    for table, k, t, b, i in SHAPE_RE.findall(text):
+        out.setdefault(table, {})[int(k) if k else None] = (
+            f"t{t}x{b}" + ("i" if i == "true" else ""))
+    return out
+
+
+def shape_at(shapes: dict, table: str, k: int) -> str:
+    """The shape of a table at K in shapes_of's result."""
+    rows = shapes[table]
+    return rows.get(k, rows.get(None))
+
+
+def shape(table: str, k: int) -> str:
+    """The shape that the sources set for a kernel family at K."""
+    return shape_at(shapes_of((CSRC / SHAPES_HEADER).read_text()), table, k)

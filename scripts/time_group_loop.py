@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Time kernels 4 and 6 and kernels 7 and 6-ed at K = 14 (Ed448) on the
-group loop (csrc/windowed.cuh, the sources as they are) against the
-one-thread loop of the same C entry points (the sources with
-ECC_W_ENTRY_POINT in place of ECC_WG_ENTRY_POINT and ECC_ED_ENTRY_POINT in
-place of ECC_EDG_ENTRY_POINT), on one NVIDIA GPU. --shapes
-TPIxTHREADS[i],... adds one build per shape, each with every K's group
-shape (windowed.cuh's GroupShape: threads a lane, threads a block, "i" for
-inlined products) set to it in a copy; --curves NAME,... times only those
-curves' instances and builds only their sources.
+"""Time the port's kernels on the group field (csrc/groupfield.cuh, the
+sources as they are) against the one-thread build of the same C entry
+points, on one NVIDIA GPU: kernel 2 (the complete add, csrc/point.cuh's
+point_add_group_kernel) at every built (K, a), kernels 4 and 6 at every
+(K, a), kernel 6-ed at K = 8 (Ed25519) and kernels 7 and 6-ed at K = 14
+(Ed448). The one-thread build is the sources with ECC_W_ENTRY_POINT in
+place of ECC_WG_ENTRY_POINT, ECC_ED_ENTRY_POINT in place of
+ECC_EDG_ENTRY_POINT and launch_add in place of launch_add_g (ONE_THREAD).
+
+--shapes TPIxTHREADS[i],... adds one build per shape, each with every
+shape table's lines in groupfield.cuh (GroupShape, AddShape:
+threads a lane, threads a block, "i" for inlined products) set to it in a
+copy; --curves NAME,... times only those curves' instances; --kernels
+add,mul times kernel 2 (add) or the window loops (mul) alone, and builds
+only their sources.
 
 Each instance runs at N = 8192 lanes on random points (64 distinct ones,
-random Z) and random scalars; every build's output is held bitwise
-against the group loop's (which the card-only tests and chip_smoke.py
-hold against the plain versions). Times are CUDA event ms a launch,
-measured in turns (the builds in order, then in reverse), and ptxas's
-registers, spills and stack of each build's kernels are printed, each
-kernel keyed by (K, a_kind, pairs) and its shape (t1: one thread a lane).
-The builds go under libecc_tpu_torch/_build/group_loop/.
+random Z) and, for the window loops, random scalars; every build's output
+is held bitwise against the group build's (which the card-only tests and
+chip_smoke.py hold against the plain versions). Times are device ms a
+launch: the stream sleeps while the host queues the launches, and CUDA
+events around them time the card alone. They are measured in turns (the
+builds in order, then in reverse). ptxas's registers, spills and stack of
+each build's kernels are printed, each kernel keyed by its base name, K,
+a_kind, pairs and shape (t1: one thread a lane). The builds go under
+libecc_tpu_torch/_build/group_loop/.
 
     python3 scripts/time_group_loop.py [--out FILE] [--shapes 2x64,4x128i]
-        [--curves NAME,...]
+        [--curves NAME,...] [--kernels add,mul]
 """
 
 import argparse
@@ -36,40 +44,102 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from libecc_tpu_torch.ops.cuda import build  # noqa: E402
+from libecc_tpu_torch.ops.cuda.build import (SHAPE_RE,  # noqa: E402
+                                             SHAPES_HEADER, shape_at,
+                                             shapes_of)
+
 N = 8192
-REPS = 3
-# one curve for each (K, a) of kernels 4 and 6, and Ed448
+# launches a turn: the window loops take milliseconds, an add tens of us
+REPS = {"mul": 3, "add": 200}
+# one curve for each (K, a) of kernels 2, 4 and 6, then Ed25519 and Ed448
 CURVES = ["P-192", "BRAINPOOLP192R1", "SECP192K1", "P-224",
           "BRAINPOOLP224R1", "SECP224K1", "P-256", "SECP256K1",
           "BRAINPOOLP256R1", "BRAINPOOLP320T1", "BRAINPOOLP320R1", "P-384",
           "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1", "BRAINPOOLP512R1",
-          "P-521", "ED448"]
-# windowed.cuh's group shapes: the default (K None) and each K's own
-SHAPE_RE = re.compile(r"struct GroupShape(?:<(\d+)>)? : "
-                      r"Shape<(\d+), (\d+), (true|false)>")
+          "P-521", "ED25519", "ED448"]
+KERNELS = ("add", "mul")
+# group entry point or launcher -> its one-thread form; "#define" lines
+# keep their names
+ONE_THREAD = ((r"(?<!#define )\bECC_WG_ENTRY_POINT\(", "ECC_W_ENTRY_POINT("),
+              (r"(?<!#define )\bECC_EDG_ENTRY_POINT\(", "ECC_ED_ENTRY_POINT("),
+              (r"\blaunch_add_g<", "launch_add<"))
+# the kernel families' shape tables, by base name (see ptxas_summary)
+TABLE_OF = {"point_add": "AddShape", "windowed_mul": "GroupShape",
+            "windowed_mul_ed": "GroupShape"}
 
 
-def shapes_of(text: str) -> dict:
-    """K (None: every other K) -> "t{TPI}x{threads}" with "i" where the
-    products are inlined, from windowed.cuh's GroupShape lines."""
-    return {int(k) if k else None: f"t{t}x{b}" + ("i" if i == "true" else "")
-            for k, t, b, i in SHAPE_RE.findall(text)}
+def one_thread(name, text):
+    """The one-thread build's text of a source or header."""
+    for pat, rep in ONE_THREAD:
+        text = re.sub(pat, rep, text)
+    return text
 
 
-def build_variant(build, label, edit, workdir, stems):
-    """nvcc each source of stems, its text passed through edit(name, text)
-    for itself and for windowed.cuh (a quoted include finds the copy
-    beside it first), into workdir/label; returns {stem: (.so, log)}."""
+def shaped(spec):
+    """edit(name, text) that sets every shape line of groupfield.cuh to
+    spec ("TPIxTHREADS" or "TPIxTHREADSi")."""
+    m = re.fullmatch(r"(\d+)x(\d+)(i?)", spec)
+    if not m:
+        raise SystemExit(f"--shapes: {spec!r} is not TPIxTHREADS[i]")
+    tpi, threads, inl = m.groups()
+
+    def edit(name, text):
+        if name != SHAPES_HEADER:
+            return text
+        assert SHAPE_RE.search(text), f"no shape line in {SHAPES_HEADER}"
+        return SHAPE_RE.sub(
+            lambda g: g.group(0).split(" : ")[0] + f" : Shape<{tpi}, "
+            f"{threads}, {'true' if inl else 'false'}>",
+            text)
+    return edit
+
+
+def variants(shapes):
+    """Label -> edit(name, text) of each build."""
+    out = {"group": lambda name, text: text, "one-thread": one_thread}
+    for spec in filter(None, shapes.split(",")):
+        out["t" + spec] = shaped(spec)
+    return out
+
+
+def stems_for(curves, kernels):
+    """The sources (csrc/<stem>.cu) that hold the curves' kernels: curve
+    name -> ([(kernel, npairs, stem)]) and the sorted stems."""
+    from libecc_tpu_torch.curves import edwards, params
+    from libecc_tpu_torch.ops.cuda import megamul, point
+    plan = {}
+    for name in curves:
+        ed = name.startswith("ED")
+        c = edwards.get_edwards_curve(name) if ed else params.get_curve(name)
+        rows = []
+        if "add" in kernels and not ed:
+            rows.append(("add", 0, point.BUILT[(c.fp_ctx.k,
+                                                point.a_kind(c))][0]))
+        if "mul" in kernels:
+            for npairs in (1, 2):
+                rows.append(("mul", npairs,
+                             megamul.instance(c, "ed" if ed else "w",
+                                              npairs)[2]))
+        plan[name] = (c, ed, rows)
+    stems = sorted({s for _, _, rows in plan.values() for *_, s in rows})
+    return plan, stems
+
+
+def build_variant(label, edit, workdir, stems):
+    """nvcc each source of stems, its text and every header's passed
+    through edit(name, text) (a quoted include finds the copy beside it
+    first), into workdir/label; returns {stem: (.so, log)}."""
     vdir = Path(workdir) / label
     vdir.mkdir(parents=True)
-    (vdir / "windowed.cuh").write_text(
-        edit("windowed.cuh", (build.CSRC / "windowed.cuh").read_text()))
+    for h in build.CSRC.glob("*.cuh"):
+        (vdir / h.name).write_text(edit(h.name, h.read_text()))
 
     def one(stem):
         src, so = vdir / f"{stem}.cu", vdir / f"{stem}.so"
         src.write_text(edit(src.name, (build.CSRC / src.name).read_text()))
         r = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS,
-                            "-I", str(build.CSRC), "-o", str(so), str(src)],
+                            "-o", str(so), str(src)],
                            capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"nvcc {label} {stem}:\n{r.stdout}{r.stderr}")
@@ -79,53 +149,29 @@ def build_variant(build, label, edit, workdir, stems):
         return dict(ex.map(one, stems))
 
 
-def variants(shapes):
-    """Label -> edit(name, text) of each build."""
-    def one_thread(name, text):
-        if name == "windowed.cuh":
-            return text
-        return (text.replace("ECC_WG_ENTRY_POINT(", "ECC_W_ENTRY_POINT(")
-                .replace("ECC_EDG_ENTRY_POINT(", "ECC_ED_ENTRY_POINT("))
-
-    def shaped(spec):
-        m = re.fullmatch(r"(\d+)x(\d+)(i?)", spec)
-        if not m:
-            raise SystemExit(f"--shapes: {spec!r} is not TPIxTHREADS[i]")
-        tpi, threads, inl = m.groups()
-
-        def edit(name, text):
-            if name != "windowed.cuh":
-                return text
-            assert SHAPE_RE.search(text), "no GroupShape in windowed.cuh"
-            return SHAPE_RE.sub(
-                lambda g: g.group(0).split(" : ")[0] + f" : Shape<{tpi}, "
-                f"{threads}, {'true' if inl else 'false'}>",
-                text)
-        return edit
-
-    out = {"group": lambda name, text: text, "one-thread": one_thread}
-    for spec in filter(None, shapes.split(",")):
-        out["t" + spec] = shaped(spec)
-    return out
+KERNEL_RE = re.compile(r"_ZN3ecc\d+(\w+?_kernel)I((?:Li\d+E)+)E")
 
 
 def ptxas_summary(log: str, shapes: dict) -> dict:
-    """Kernel (K, a_kind, pairs and shape; "ed_" before the Edwards ones)
-    -> [registers, spill store bytes, stack frame bytes]; shapes is the
-    build's shapes_of."""
+    """Kernel ("{base}_k{K}_a{a_kind}[_p{pairs}]_{shape}") -> [registers,
+    spill store bytes, stack frame bytes]; shapes is the build's
+    shapes_of."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            km = re.search(r"kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
-            ed = "ed_" if "_ed_" in m.group(1) else ""
+            km = KERNEL_RE.search(m.group(1))
+            key = None
             if km:
-                k = int(km.group(1))
-                shape = (shapes.get(k, shapes[None])
-                         if "group_kernel" in m.group(1) else "t1")
-                key = ed + "k{}_a{}_p{}_".format(*km.groups()) + shape
-            else:
-                key = None
+                name = km.group(1)
+                base = name.replace("_group_kernel", "").replace("_kernel",
+                                                                 "")
+                args = [int(v) for v in re.findall(r"Li(\d+)E", km.group(2))]
+                shape = (shape_at(shapes, TABLE_OF[base], args[0])
+                         if "group_kernel" in name else "t1")
+                key = (f"{base}_k{args[0]}_a{args[1]}"
+                       + (f"_p{args[2]}" if len(args) > 2 else "")
+                       + f"_{shape}")
             continue
         if key is None:
             continue
@@ -140,24 +186,55 @@ def ptxas_summary(log: str, shapes: dict) -> dict:
     return out
 
 
+def device_ms(torch, fn, reps):
+    """Device ms of one call of fn, its launches queued behind a sleep of
+    the stream so that the card, not the host's launch interval, is
+    timed."""
+    fn()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - h0) * 1e3
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for sleep_ms in (2 * host_ms + 5, 8 * host_ms + 20):
+        torch.cuda._sleep(int(sleep_ms * 2e6))     # >= sleep_ms at 2 GHz
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = not a.query()
+        torch.cuda.synchronize()
+        if queued:
+            return a.elapsed_time(b) / reps
+    raise RuntimeError(f"the host did not queue {reps} calls within the "
+                       f"stream's sleep of {sleep_ms:.1f} ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--shapes", default="")
     ap.add_argument("--curves", default=",".join(CURVES))
+    ap.add_argument("--kernels", default=",".join(KERNELS))
     args = ap.parse_args()
     edits = variants(args.shapes)
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(KERNELS):
+        raise SystemExit(f"--kernels: {args.kernels!r}: add, mul")
     import ctypes
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    from libecc_tpu_torch.curves import edwards, params, scalar_mul
+    from libecc_tpu_torch.curves import scalar_mul
     from libecc_tpu_torch.curves.edwards import ExtPoint
     from libecc_tpu_torch.curves.shortw import PrjPoint
     from libecc_tpu_torch.nn import core as nn
-    from libecc_tpu_torch.ops.cuda import build, megamul
+    from libecc_tpu_torch.ops.cuda import megamul, point
     from libecc_tpu_torch.ref import hostref as H
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -165,13 +242,7 @@ def main() -> int:
                          text=True).stdout.strip()
     print(smi)
     dev = torch.device("cuda")
-    curves = {}
-    for name in args.curves.split(","):
-        ed = name.startswith("ED")
-        curves[name] = (edwards.get_edwards_curve(name) if ed
-                        else params.get_curve(name), ed)
-    stems = sorted({megamul.instance(c, "ed" if ed else "w", npairs)[2]
-                    for c, ed in curves.values() for npairs in (1, 2)})
+    plan, stems = stems_for(args.curves.split(","), kernels)
     t0 = time.perf_counter()
     wd = build.BUILD_DIR / "group_loop"
     shutil.rmtree(wd, ignore_errors=True)
@@ -179,7 +250,7 @@ def main() -> int:
         # the package's own build (the kernels that make the tables) beside
         # the variants
         base = ex.submit(build.library, stems[0])
-        futs = {lb: ex.submit(build_variant, build, lb, e, wd, stems)
+        futs = {lb: ex.submit(build_variant, lb, e, wd, stems)
                 for lb, e in edits.items()}
         builds = {lb: f.result() for lb, f in futs.items()}
         base.result()
@@ -188,14 +259,14 @@ def main() -> int:
     print(f"builds: {time.perf_counter() - t0:.1f} s")
     regs = {lb: ptxas_summary(
         "\n".join(log for _, log in b.values()),
-        shapes_of((wd / lb / "windowed.cuh").read_text()))
+        shapes_of((wd / lb / SHAPES_HEADER).read_text()))
         for lb, b in builds.items()}
     print(json.dumps({"ptxas": regs}))
     rng = np.random.RandomState(9)
     order = [*edits, *reversed(list(edits))]
     first = order[0]
     rows = []
-    for name, (c, ed) in curves.items():
+    for name, (c, ed, todo) in plan.items():
         p, q = c.fp_ctx.p_int, c.q
         cls, model = (ExtPoint, "ed") if ed else (PrjPoint, "w")
         if ed:
@@ -223,47 +294,48 @@ def main() -> int:
                              for P_, m in zip(pts, lam)])
             return cls(*[c.fp_ctx.from_ints(col, dev) for col in cols])
 
-        tabs = [scalar_mul._build_mul_table(c, points()) for _ in range(2)]
-        digs = [scalar_mul._window_digits(nn.upload(nn.batch_to_limbs(
-            rand(q, N), c.q_ctx.k), dev), c.scalar_bits()) for _ in range(2)]
-        for npairs in (1, 2):
-            kname, _, stem = megamul.instance(c, model, npairs)
+        for kind, npairs, stem in todo:
+            if kind == "add":
+                ins = [*points(), *points()]
+                kname = point.instance_name("point_add", c)
+
+                def run():
+                    return point._launch("point_add", c, ins)
+            else:
+                tabs = [scalar_mul._build_mul_table(c, points())
+                        for _ in range(npairs)]
+                digs = [scalar_mul._window_digits(nn.upload(
+                    nn.batch_to_limbs(rand(q, N), c.q_ctx.k), dev),
+                    c.scalar_bits()) for _ in range(npairs)]
+                kname = megamul.instance(c, model, npairs)[0]
+
+                def run():
+                    return megamul._launch(c, tabs, digs, cls)
             times, outs = {lb: [] for lb in libs}, {}
             for lb in order:
                 saved = build._LIBS[stem]
                 build._LIBS[stem] = libs[lb][stem]
                 try:
-                    def run():
-                        return megamul._launch(c, tabs[:npairs],
-                                               digs[:npairs], cls)
                     outs[lb] = run()
-                    torch.cuda.synchronize()
-                    a = torch.cuda.Event(enable_timing=True)
-                    b = torch.cuda.Event(enable_timing=True)
-                    a.record()
-                    for _ in range(REPS):
-                        run()
-                    b.record()
-                    torch.cuda.synchronize()
-                    times[lb].append(a.elapsed_time(b) / REPS)
+                    times[lb].append(device_ms(torch, run, REPS[kind]))
                 finally:
                     build._LIBS[stem] = saved
             same = {lb: all(torch.equal(x, y) for x, y in
                             zip(outs[lb], outs[first])) for lb in outs}
             row = {"name": kname, "k": c.fp_ctx.k, "curve": name,
-                   "npairs": npairs, "n": N,
-                   "nwin": digs[0].shape[0], "bitwise_equal": same,
+                   "kernel": kind, "npairs": npairs, "n": N,
+                   "bitwise_equal": same,
                    "ms": {lb: round(sum(v) / len(v), 5)
                           for lb, v in times.items()},
                    "ms_each": {lb: [round(x, 5) for x in v]
                                for lb, v in times.items()}}
+            if kind == "mul":
+                row["nwin"] = digs[0].shape[0]
             rows.append(row)
             print(json.dumps(row), flush=True)
     ok = all(all(r["bitwise_equal"].values()) for r in rows)
-    result = {"device": smi, "n": N, "reps": REPS,
-              "builds": list(edits),
-              "ptxas": regs,
-              "rows": rows, "all_bitwise_equal": ok}
+    result = {"device": smi, "n": N, "reps": REPS, "builds": list(edits),
+              "ptxas": regs, "rows": rows, "all_bitwise_equal": ok}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

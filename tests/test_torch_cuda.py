@@ -626,14 +626,16 @@ def test_new_entry_points_refuse_another_a_in_c(dev, cname, stem, curve,
     assert rc == 1                                     # cudaErrorInvalidValue
 
 
-# -- kernels 4 and 6 (every K) and 7 and 6-ed (K = 14) on the group loop --
+# -- kernels 4 and 6 (every K), 6-ed (K = 8) and 7 and 6-ed (K = 14) on the
+# group loop --
 
-# one curve for each (K, a) built on the group loop
+# one curve for each (K, a) built on the group loop; Ed25519's kernel 6-ed
+# runs it, its kernel 7 one thread a lane
 GROUP_CURVES = ["P-192", "BRAINPOOLP192R1", "SECP192K1", "P-224",
                 "BRAINPOOLP224R1", "SECP224K1", "P-256", "SECP256K1",
                 "BRAINPOOLP256R1", "BRAINPOOLP320T1", "BRAINPOOLP320R1",
                 "P-384", "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1",
-                "BRAINPOOLP512R1", "P-521", "ED448"]
+                "BRAINPOOLP512R1", "P-521", "ED448", "ED25519"]
 
 
 def group_loop_lanes(c, dev, nmax=161):
@@ -656,10 +658,11 @@ def group_loop_lanes(c, dev, nmax=161):
 @pytest.mark.parametrize("name", GROUP_CURVES)
 def test_group_loop_kernels_match_plain_at_ragged_n(dev, name, npairs):
     """Kernel 4 (npairs 1) and kernel 6 (npairs 2) at each (K, a) of the
-    group loop, and kernels 7 and 6-ed on Ed448, against their plain
-    versions, bitwise, at n = 1 (one group, a partial warp), 33 (every
-    shape of csrc/windowed.cuh's GroupShape gives a block 32 lanes: a
-    partial block) and 161 (the last of six blocks holds one lane); where
+    group loop, kernels 7 and 6-ed on Ed448 and Ed25519 (kernel 7 at
+    K = 8 on one thread a lane), against their plain versions, bitwise,
+    at n = 1 (one group, a partial warp), 33 (every shape of
+    csrc/groupfield.cuh's GroupShape gives a block 32 lanes: a partial
+    block) and 161 (the last of six blocks holds one lane); where
     the group's threads do not divide K (K = 7, 14 and 17) its zero limbs
     are in play.
     The first lanes carry the identity (lanes 1 and 2 of P) and the window
@@ -705,5 +708,62 @@ def test_group_loop_kernels_match_plain_at_ragged_n(dev, name, npairs):
         ctypes.byref(cs), point.ptr_array([dig] * npairs),
         dig.shape[0], point.ptr_array([tab] * npairs), point.ptr_array(outs),
         0, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc == 0
+    torch.cuda.synchronize()
+
+
+# -- kernel 2 on a group of threads a lane (every K) ------------------------
+
+# one curve for each (K, a) of kernel 2, then the h > 1 curves that share
+# an instance (WEI448 has its own)
+ADD_CURVES = [*[n for n in GROUP_CURVES if not n.startswith("ED")],
+              "WEI25519", "GOST_R3410_2012_256_PARAMSETA",
+              "GOST_R3410_2012_512_PARAMSETC"]
+
+
+@pytest.mark.parametrize("name", ADD_CURVES)
+def test_add_kernel_matches_plain_at_ragged_n(dev, name):
+    """Kernel 2 in csrc/groupfield.cuh's AddShape at each (K, a) against
+    its plain version, bitwise, at n = 1 (one group, a partial warp), 33
+    (a partial block at every shape of 32 lanes a block) and 161 (the last
+    block holds one lane); where the group's threads do not divide K
+    (K = 7, 14 and 17 at four threads) its zero limbs are in play. Edge
+    lanes first: P + O, O + Q, O + O, P = Q, P = -Q, then random ones; on
+    an h > 1 curve the point T2 of order 2 and the identity: O + T2,
+    T2 + O (the complete add gives (0 : 0 : 0) there, ROADMAP.md section
+    3) and T2 + T2 on lanes 5, 6 and 7. One plain run at 161 lanes serves
+    the three, the lanes being independent; each n launches once. With
+    n = 0 the C entry point returns 0 and so launched nothing."""
+    import ctypes
+    c = params.get_curve(name)
+    rng = np.random.RandomState(82)
+    nmax = 161
+    A, B = _point_pairs(c, rng, nmax, dev)
+    if c.h > 1:
+        t2 = H.ec_order2_point(_host(c))
+        A2 = _prj(c, rng, [None, t2, t2], dev)
+        B2 = _prj(c, rng, [t2, None, t2], dev)
+        A = PrjPoint(*[torch.cat([a[:, :5], e, a[:, 8:]], 1)
+                       for a, e in zip(A, A2)])
+        B = PrjPoint(*[torch.cat([b[:, :5], e, b[:, 8:]], 1)
+                       for b, e in zip(B, B2)])
+    want = point.point_add_plain(c, A, B)
+    if c.h > 1:
+        assert c.fp_ctx.to_ints(want.z[:, 6:7]) == [0]
+    name_k = point.instance_name("point_add", c)
+    for n in (1, 33, nmax):
+        ins = [v[:, :n].contiguous() for v in (*A, *B)]
+        before = dict(point.launches)
+        got = point.point_add(c, PrjPoint(*ins[:3]), PrjPoint(*ins[3:]))
+        assert point.launches[name_k] == before[name_k] + 1
+        assert sum(point.launches.values()) == sum(before.values()) + 1
+        assert all(torch.equal(g, w[:, :n]) for g, w in zip(got, want)), n
+    stem, _, tag = point.BUILT[(c.fp_ctx.k, point.a_kind(c))]
+    empty = torch.zeros((c.fp_ctx.k, 0), dtype=torch.int32, device=dev)
+    rc = getattr(point._lib(stem), point._entry("point_add", c.fp_ctx.k,
+                                                 tag))(
+        ctypes.byref(point.curve_struct(c)), point.ptr_array([empty] * 6),
+        point.ptr_array([empty] * 3), 0,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     assert rc == 0
     torch.cuda.synchronize()

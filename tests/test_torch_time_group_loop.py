@@ -1,0 +1,166 @@
+"""The text edits of scripts/time_group_loop.py, which times the group
+builds of kernels 2, 4, 6, 7 and 6-ed against their one-thread builds: a
+swap that matched nothing would time the group build against itself, and
+a shape line the parser missed would time the default shape under another
+name. No CUDA needed: the edits are plain text."""
+
+import importlib.util
+import re
+from pathlib import Path
+
+import pytest
+
+from libecc_tpu_torch.ops.cuda import build, megamul, point
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location(
+    "time_group_loop", ROOT / "scripts" / "time_group_loop.py")
+tgl = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(tgl)
+
+_, STEMS = tgl.stems_for(tgl.CURVES, tgl.KERNELS)
+GROUP_FORMS = (r"^ECC_WG_ENTRY_POINT\(", r"^ECC_EDG_ENTRY_POINT\(",
+               r"\blaunch_add_g<")
+
+
+def _text(name):
+    return (build.CSRC / name).read_text()
+
+
+def _uses(text, pats):
+    """Uses (not #define lines) of the patterns in text."""
+    return sum(len(re.findall(p, text, re.M)) for p in pats)
+
+
+def _entry_points():
+    """Every C entry point of kernels 2 (point.BUILT) and 4, 6, 7 and 6-ed
+    (megamul's table) -> its source stem."""
+    out = {f"point_add_k{k}_{tag}" if tag else f"point_add_k{k}": stem
+           for (k, _), (stem, bases, tag) in point.BUILT.items()
+           if "point_add" in bases}
+    out.update({cname: stem for _, cname, stem in megamul._KERNELS.values()})
+    return out
+
+
+def test_the_script_builds_every_source_of_kernels_2_4_6_7_and_6ed():
+    assert set(_entry_points().values()) <= set(STEMS)
+
+
+@pytest.mark.parametrize("stem", STEMS)
+def test_one_thread_edit_rewrites_every_group_entry_point(stem):
+    """Each source's group entry points and launcher calls are all
+    rewritten and none is left. A source's kernel-2 entry points made by
+    point.cuh's ECC_POINT_ENTRY_POINTS call the launcher in the macro,
+    which the header's edit rewrites (test below)."""
+    text = _text(f"{stem}.cu")
+    edited = tgl.one_thread(f"{stem}.cu", text)
+    n_group = _uses(text, GROUP_FORMS)
+    n_macro = _uses(text, (r"^ECC_POINT_ENTRY_POINTS\(",))
+    assert n_group + n_macro >= 1, f"{stem}.cu has no group entry point"
+    assert _uses(edited, GROUP_FORMS) == 0
+    one = (r"^ECC_W_ENTRY_POINT\(", r"^ECC_ED_ENTRY_POINT\(",
+           r"\blaunch_add<")
+    assert _uses(edited, one) == _uses(text, one) + n_group
+    changed = sum(a != b for a, b in zip(text.splitlines(),
+                                         edited.splitlines()))
+    assert changed >= min(n_group, 1)
+    # each group-built entry point of this source is now one-thread: its
+    # statement (from its line to the next blank or comment line) holds a
+    # one-thread form and no group form
+    for cname, s in _entry_points().items():
+        if s != stem:
+            continue
+        at = re.search(rf"\b{cname}\b", edited)
+        if at is None:         # an ECC_POINT_ENTRY_POINTS(K, AK, TAG) use
+            assert n_macro, cname
+            continue
+        start = edited.rfind("\n", 0, at.start()) + 1
+        ends = [i for i in (edited.find("\n\n", start),
+                            edited.find("\n//", start)) if i >= 0]
+        stmt = edited[start:min(ends, default=len(edited))]
+        assert not re.search(r"ECC_WG_|ECC_EDG_|launch_add_g<", stmt), cname
+        assert re.search(r"ECC_W_ENTRY_POINT\(|ECC_ED_ENTRY_POINT\(|"
+                         r"launch_add<", stmt), cname
+
+
+@pytest.mark.parametrize("rule", range(len(tgl.ONE_THREAD)))
+def test_each_one_thread_swap_changes_lines(rule):
+    """Each swap of the one-thread edit changes at least one line of the
+    sources and headers the script builds."""
+    pat, rep = tgl.ONE_THREAD[rule]
+    names = [f"{s}.cu" for s in STEMS] + [h.name for h in
+                                          build.CSRC.glob("*.cuh")]
+    changed = 0
+    for name in names:
+        text = _text(name)
+        edited = re.sub(pat, rep, text)
+        changed += sum(a != b for a, b in zip(text.splitlines(),
+                                              edited.splitlines()))
+    assert changed >= 1, pat
+
+
+def test_one_thread_edit_of_the_headers():
+    """point.cuh's entry-point macro calls the one-thread launcher after
+    the edit; the macros' definitions in windowed.cuh keep their names."""
+    pt = tgl.one_thread("point.cuh", _text("point.cuh"))
+    macro = pt[pt.index("#define ECC_POINT_ENTRY_POINTS"):]
+    macro = macro[:macro.index("\n\n")]
+    assert "ecc::launch_add<K, AK>" in macro
+    assert "launch_add_g<" not in pt
+    assert "int launch_add_g(" in pt            # the definition stays
+    w = _text("windowed.cuh")
+    assert tgl.one_thread("windowed.cuh", w) == w
+    for h in build.CSRC.glob("*.cuh"):
+        assert _uses(tgl.one_thread(h.name, h.read_text()),
+                     GROUP_FORMS) == 0, h.name
+
+
+def test_shape_parser_reads_every_table():
+    """groupfield.cuh's shape lines: GroupShape and AddShape, a default
+    each, every K's own line."""
+    text = _text(tgl.SHAPES_HEADER)
+    shapes = tgl.shapes_of(text)
+    lines = re.findall(r"^(?:template <> )?struct \w+Shape(?:<\d+>)? : "
+                       r"Shape<", text, re.M)
+    assert sum(len(v) for v in shapes.values()) == len(lines)
+    assert None in shapes["GroupShape"] and None in shapes["AddShape"]
+    for table in ("GroupShape", "AddShape"):
+        for k in (6, 7, 8, 10, 12, 14, 16, 17):
+            assert re.fullmatch(r"t\d+x\d+i?",
+                                tgl.shape_at(shapes, table, k))
+
+
+@pytest.mark.parametrize("spec", ["2x64", "4x128i", "8x256"])
+def test_shape_edit_sets_every_table(spec):
+    text = _text(tgl.SHAPES_HEADER)
+    edited = tgl.shaped(spec)(tgl.SHAPES_HEADER, text)
+    want = "t" + spec
+    shapes = tgl.shapes_of(edited)
+    assert {tuple(v) for v in shapes.values()} == \
+        {tuple(v) for v in tgl.shapes_of(text).values()}
+    for table in ("GroupShape", "AddShape"):
+        for k in (6, 7, 8, 10, 12, 14, 16, 17):
+            assert tgl.shape_at(shapes, table, k) == want
+    assert tgl.shaped(spec)("point.cuh", "x") == "x"
+
+
+def test_ptxas_summary_keys_each_kernel_by_its_shape():
+    shapes = tgl.shapes_of(_text(tgl.SHAPES_HEADER))
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN3ecc22point_add_group_kernelILi17ELi1EEEvNS_8CurveCtxIXT_EEE'",
+        "ptxas info    : Used 96 registers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function "
+        "'_ZN3ecc16point_add_kernelILi17ELi1EEEvNS_8CurveCtxIXT_EEE'",
+        "    200 bytes stack frame, 180 bytes spill stores, 180 bytes spill",
+        "ptxas info    : Used 255 registers",
+        "ptxas info    : Compiling entry function '_ZN3ecc28windowed_mul_"
+        "ed_group_kernelILi8ELi0ELi2EEEvNS_10EdCurveCtxIXT_EEE'",
+        "ptxas info    : Used 80 registers"])
+    got = tgl.ptxas_summary(log, shapes)
+    add = tgl.shape_at(shapes, "AddShape", 17)
+    ed = tgl.shape_at(shapes, "GroupShape", 8)
+    assert got == {f"point_add_k17_a1_{add}": [96, 0, 0],
+                   "point_add_k17_a1_t1": [255, 180, 200],
+                   f"windowed_mul_ed_k8_a0_p2_{ed}": [80, 0, 0]}
