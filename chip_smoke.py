@@ -518,16 +518,17 @@ def run(torch) -> int:
     def row_shape(name):
         """The shape a kernel row runs in, from groupfield.cuh's tables:
         "t{TPI}x{threads}" (with "i" where products are inlined) on the
-        group field, "t1" on one thread a lane: kernel 2 in AddShape,
-        kernels 4, 6, 7 and 6-ed in GroupShape but kernel 7 at K = 8 (one
-        thread a lane), kernels 1, 3, 5 and 8a-8c "t1"."""
-        for (k_, model, npairs, _), (kname, _, _) in megamul._KERNELS.items():
+        group field, "t1" on one thread a lane: kernels 2 and 8a in
+        AddShape, kernels 4, 6, 7 and 6-ed in GroupShape, kernels 1, 3, 5,
+        8b and 8c "t1"."""
+        for (k_, _, _, _), (kname, _, _) in megamul._KERNELS.items():
             if kname == name:
-                if (k_, model, npairs) == (8, "ed", 1):
-                    return "t1"
                 return build.shape("GroupShape", k_)
         for (k_, _), (_, _, tag) in point.BUILT.items():
             if name == point._count_name("point_add", k_, tag):
+                return build.shape("AddShape", k_)
+        for k_ in edpoint.BUILT["ed_add"]:
+            if name == build.kernel_name("ed_add", k_):
                 return build.shape("AddShape", k_)
         return "t1"
 

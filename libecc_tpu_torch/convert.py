@@ -79,10 +79,9 @@ def ext_point_to_jax(P: ExtPoint, ctx, k_jax: int) -> tuple:
     return tuple(fe_to_jax(v, ctx, k_jax) for v in P)
 
 
-def keys_from_jax(curve, x, y, z, alg: str = "ECDSA",
-                  device="cpu") -> KeyBatch:
+def keys_from_jax(curve, x, y, z, device, alg: str = "ECDSA") -> KeyBatch:
     """A JAX KeyBatch's pub coordinates (numpy) -> the port's public-key
-    KeyBatch."""
+    KeyBatch on `device`."""
     pub = point_from_jax(curve, x, y, z, device)
     return KeyBatch(curve=curve, alg=alg, n=pub.x.shape[1], pub=pub)
 

@@ -15,13 +15,18 @@
 // for 12 x 4K bytes of traffic per lane (8 coordinates in, 4 out): at
 // K = 8 about 2,400 multiply-add slots for 384 bytes (at K = 14 about
 // 7,200 for 672 bytes), well above the card's slot-to-byte ratio; a
-// double is 4 squares and 4 products for 7 x 4K bytes. Design: as kernels
-// 2 and 3, one thread per lane, the whole formula in registers: the
-// templates of edpoint.cuh over field.cuh's ThreadField. Kernel 8c keeps
-// the point in registers across its n doublings (4n squares and 4n + 9
-// products for 384 bytes; n is a run-time argument); with n = 0 it is the
-// add, T of P included.
+// double is 4 squares and 4 products for 7 x 4K bytes. Design: the whole
+// formula in registers, the templates of edpoint.cuh. Kernel 8a runs on
+// a group of threads a lane (groupfield.cuh's GroupField, in the shape
+// its AddShape sets at each K), as kernel 2 does: one thread a lane gives
+// 8192 lanes 32 blocks of 256 on 32 of the 132 SMs, each product one
+// thread's chain of 2K^2 multiply-adds, and holds an extended point in
+// 4K registers (56 at K = 14). Kernels 8b and 8c run one thread a lane,
+// over field.cuh's ThreadField. Kernel 8c keeps the point in registers
+// across its n doublings (4n squares and 4n + 9 products for 384 bytes;
+// n is a run-time argument); with n = 0 it is the add, T of P included.
 #include "edpoint.cuh"
+#include "groupfield.cuh"
 
 namespace ecc {
 
@@ -43,6 +48,54 @@ ed_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
   const ExtPt<K> P = load_ext<K>(x1, y1, z1, t1, n, lane);
   const ExtPt<K> Q = load_ext<K>(x2, y2, z2, t2, n, lane);
   store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<AK>(f, P, Q));
+}
+
+// Kernel 8a where a group of TPI threads carries a lane, in the shape
+// AddShape<K> (groupfield.cuh). ed_add is the same template over
+// GroupField, so the sequence of operations, and the projective result,
+// is ed_add_kernel's. A block of THREADS threads carries THREADS / TPI
+// lanes; the threads past lane n - 1 (in the last block) repeat lane
+// n - 1 and do not store, so that every warp's shuffles and votes see all
+// 32 threads (no early return, no branch on the thread's place in its
+// group).
+template <int K, int AK>
+__global__ void __launch_bounds__(AddShape<K>::kThreads,
+                                  AddShape<K>::kMinBlocks)
+ed_add_group_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
+                    const uint32_t* __restrict__ y1,
+                    const uint32_t* __restrict__ z1,
+                    const uint32_t* __restrict__ t1,
+                    const uint32_t* __restrict__ x2,
+                    const uint32_t* __restrict__ y2,
+                    const uint32_t* __restrict__ z2,
+                    const uint32_t* __restrict__ t2,
+                    uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
+                    uint32_t* __restrict__ z3, uint32_t* __restrict__ t3,
+                    long long n) {
+  using S = AddShape<K>;
+  using GF = GroupField<K, S::kTPI, S::kInline>;
+  __shared__ uint32_t consts[GF::kSharedWords];
+  GF::stage(consts, C);
+  const GF f(consts, C.f.pinv);
+  const long long g =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / S::kTPI;
+  const long long lane = g < n ? g : n - 1;
+  ExtOf<typename GF::E> P, Q;
+  P.x = f.load(x1, n, lane);
+  P.y = f.load(y1, n, lane);
+  P.z = f.load(z1, n, lane);
+  P.t = f.load(t1, n, lane);
+  Q.x = f.load(x2, n, lane);
+  Q.y = f.load(y2, n, lane);
+  Q.z = f.load(z2, n, lane);
+  Q.t = f.load(t2, n, lane);
+  const ExtOf<typename GF::E> R = ed_add<AK>(f, P, Q);
+  if (g < n) {
+    f.store(x3, n, lane, R.x);
+    f.store(y3, n, lane, R.y);
+    f.store(z3, n, lane, R.z);
+    f.store(t3, n, lane, R.t);
+  }
 }
 
 template <int K, int AK>
@@ -90,6 +143,8 @@ inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+// Kernel 8a one thread a lane: no entry point calls it; it stays as
+// scripts/time_group_loop.py's one-thread measure of launch_ed_add_g.
 template <int K, int AK>
 int launch_add(const EdCurveCtx<K>* C, const uint32_t* const* in,
                uint32_t* const* out, long long n, void* stream) {
@@ -99,6 +154,24 @@ int launch_add(const EdCurveCtx<K>* C, const uint32_t* const* in,
                            (cudaStream_t)stream>>>(
         *C, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], out[0],
         out[1], out[2], out[3], n);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 8a on the group field, in the shape AddShape<K>. The C entry
+// points call this one; naming launch_add in its place in their text
+// gives the one-thread build (scripts/time_group_loop.py).
+template <int K, int AK>
+int launch_ed_add_g(const EdCurveCtx<K>* C, const uint32_t* const* in,
+                    uint32_t* const* out, long long n, void* stream) {
+  using S = AddShape<K>;
+  if (C->a_kind != AK) return (int)cudaErrorInvalidValue;
+  const long long lanes = S::kThreads / S::kTPI;   // a block's lanes
+  if (n > 0)
+    ed_add_group_kernel<K, AK>
+        <<<(unsigned)((n + lanes - 1) / lanes), S::kThreads, 0,
+           (cudaStream_t)stream>>>(*C, in[0], in[1], in[2], in[3], in[4],
+                                   in[5], in[6], in[7], out[0], out[1],
+                                   out[2], out[3], n);
   return (int)cudaGetLastError();
 }
 
@@ -137,7 +210,7 @@ extern "C" {
 // pointers).
 int ed_add_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
               uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_add<8, ecc::ED_A_M1>(C, in, out, n, stream);
+  return ecc::launch_ed_add_g<8, ecc::ED_A_M1>(C, in, out, n, stream);
 }
 
 // in: x1, y1, z1; out: x3, y3, z3, t3.
@@ -148,7 +221,7 @@ int ed_dbl_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
 
 int ed_add_k14(const ecc::EdCurveCtx<14>* C, const uint32_t* const* in,
                uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_add<14, ecc::ED_A_1>(C, in, out, n, stream);
+  return ecc::launch_ed_add_g<14, ecc::ED_A_1>(C, in, out, n, stream);
 }
 
 int ed_dbl_k14(const ecc::EdCurveCtx<14>* C, const uint32_t* const* in,

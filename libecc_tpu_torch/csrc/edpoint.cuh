@@ -13,9 +13,10 @@
 // lane needs an identity select.
 //
 // The formulas are templates over a field type F, as point.cuh's are:
-// field.cuh's ThreadField (one thread a lane: kernels 8a, 8b, 8c, and 7
-// and 6-ed at K = 8) or groupfield.cuh's GroupField (a group of threads a
-// lane: kernels 7 and 6-ed at K = 14), one text for both. The curve's
+// field.cuh's ThreadField (one thread a lane: kernels 8b and 8c, and the
+// one-thread baselines of 8a, 7 and 6-ed) or groupfield.cuh's GroupField
+// (a group of threads a lane: kernels 8a, 7 and 6-ed at K = 8 and 14),
+// one text for both. The curve's
 // constants come from the field type (f.one(), f.d(), f.d2()), and
 // independent products are asked for in pairs (mul2, sqr2), which the
 // group field computes together.

@@ -1,7 +1,7 @@
-// The field of kernels 2, 4 and 6 at every K and of kernels 7 and 6-ed
-// at K = 8 (6-ed) and 14: a group of TPI neighbouring threads of a warp
-// carries one lane (sm_90a); the shape tables at the end of this file
-// set TPI and INLINE at each K, one table a kernel family.
+// The field of kernels 2, 4 and 6 at every K and of the Edwards kernels
+// 7, 6-ed and 8a at K = 8 and 14: a group of TPI neighbouring threads of
+// a warp carries one lane (sm_90a); the shape tables at the end of this
+// file set TPI and INLINE at each K, one table a kernel family.
 //
 // Thread j of a group (j = 0 .. TPI-1) holds limbs j*L .. j*L+L-1 of every
 // field element, L = ceil(K / TPI); the limbs from K up to L*TPI (K = 7,
@@ -478,8 +478,10 @@ struct Shape {
 // called; four pad K to 8 and 12 limbs, and ran 1.14-1.31x slower. K = 8:
 // four threads a lane, products inlined, 2-7% faster than calls and 2-5%
 // faster than two threads a lane (Ed25519's kernel 6-ed: within 0.3% of
-// two threads with calls, 1.4% ahead of four with calls). K = 7: the same
-// shape; two threads a lane came within 2.5% either way.
+// two threads with calls, 1.4% ahead of four with calls; Ed25519's kernel
+// 7: two or four threads with calls 0.3-0.4% faster, within noise, two
+// inlined 12% slower). K = 7: the same shape; two threads a lane came
+// within 2.5% either way.
 template <int K>
 struct GroupShape : Shape<4, 128, false> {};
 template <> struct GroupShape<6> : Shape<2, 64, false> {};
@@ -487,13 +489,16 @@ template <> struct GroupShape<7> : Shape<4, 128, true> {};
 template <> struct GroupShape<8> : Shape<4, 128, true> {};
 template <> struct GroupShape<10> : Shape<2, 64, false> {};
 
-// AddShape: kernel 2, one complete add a lane (point.cuh). K = 7, 8 and
-// K >= 12: four threads a lane in blocks of 128, products inlined (0-4%
-// faster than calls; two threads a lane ran 1.13-1.50x slower at
-// K >= 12, eight 1.19-1.61x slower at every K). K = 6 and 10: two
-// threads a lane, products called, 1.08-1.21x faster than four inlined.
-// One thread a lane was slower at every K: 1.24-1.34x at K = 6 and 7,
-// 1.5-3.5x above.
+// AddShape: kernels 2 and 8a, one complete add a lane (point.cuh,
+// edpoint.cu). K = 7, 8 and K >= 12: four threads a lane in blocks of
+// 128, products inlined (0-4% faster than calls; two threads a lane ran
+// 1.13-1.50x slower at K >= 12, eight 1.19-1.61x slower at every K).
+// K = 6 and 10: two threads a lane, products called, 1.08-1.21x faster
+// than four inlined. One thread a lane was slower at every K: 1.24-1.34x
+// at K = 6 and 7, 1.5-3.5x above. The Edwards add (8a) at K = 8 and 14
+// ran fastest in the same shape: four called +1.0-1.5%, two called equal
+// at K = 8 and 1.27x slower at K = 14, eight inlined 1.18-1.25x slower;
+// one thread a lane 1.54x (K = 8) and 2.46x (K = 14) slower.
 template <int K>
 struct AddShape : Shape<4, 128, true> {};
 template <> struct AddShape<6> : Shape<2, 64, false> {};

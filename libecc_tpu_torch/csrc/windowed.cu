@@ -27,8 +27,8 @@
 // lane's entry (edpoint.cuh: add-2008-hwcd-3 for a = -1, add-2008-hwcd for
 // a = 1). Both formula sets are complete on the curves they are built for,
 // so there is no identity select. Built here for a = -1 at K = 8
-// (Ed25519: kernel 7 on one thread a lane, 6-ed on the group loop in
-// groupfield.cuh's GroupShape<8>); at K = 14 for a = 1
+// (Ed25519: kernels 7 and 6-ed on the group loop in groupfield.cuh's
+// GroupShape<8>); at K = 14 for a = 1
 // (Ed448: q has 446 bits, so 112 windows) kernel 7 is built in
 // windowed_ed448.cu and 6-ed in straus_ed448.cu, on the group loop. With
 // kernels 1, 8a and 8b at K = 14 those are the port's counterpart of the
@@ -57,20 +57,18 @@
 // arithmetic. Design: the accumulator and all formula temporaries in
 // registers, table entries read straight from device memory (coalesced
 // across lanes of a warp for one limb), the pair loop rolled so that the
-// second pair adds no code and few registers. One thread a lane (kernels 7
-// and 6-ed here) runs each product as one long chain, and at 8192 lanes
-// fills 64 of the 132 SMs with one warp a scheduler: kernels 4 and 6 so ran
-// at 10.9-15x their bounds at every K on an H100 80GB HBM3 at 700 W, and
-// spilled at K >= 14 (an extended point is 56 registers at K = 14). So
-// kernels 4 and 6 at every K and the Edwards kernels at K = 14 run the
-// group loop instead: two or four threads a lane, each with a share of
-// every element, so that 8192 lanes give every SM two to four times the
-// warps and no thread needs more than 128 registers (the notes in
-// groupfield.cuh; the shape at each K in its GroupShape). Kernel 6-ed at
-// K = 8 runs the group loop too; kernel 7 at
-// K = 8 stays on one thread a lane: its group loop is later work. Staging
-// the tables in shared memory (1.5 or 2 KB a lane and pair) is later
-// work.
+// second pair adds no code and few registers. One thread a lane runs each
+// product as one long chain, and at 8192 lanes fills 64 of the 132 SMs
+// with one warp a scheduler: kernels 4 and 6 so ran at 10.9-15x their
+// bounds at every K on an H100 80GB HBM3 at 700 W, and spilled at K >= 14
+// (an extended point is 56 registers at K = 14). So all four kernels run
+// the group loop instead, at every K: two or four threads a lane, each
+// with a share of every element, so that 8192 lanes give every SM two to
+// four times the warps and no thread needs more than 128 registers (the
+// notes in groupfield.cuh; the shape at each K in its GroupShape). The
+// one-thread Edwards form (ECC_ED_ENTRY_POINT) stays as
+// scripts/time_group_loop.py's baseline. Staging the tables in shared
+// memory (1.5 or 2 KB a lane and pair) is later work.
 #include "windowed.cuh"
 
 extern "C" {
@@ -83,10 +81,10 @@ ECC_WG_ENTRY_POINT(windowed_mul_k8_w4, 8, 1, ecc::A_M3, ecc::A_ZERO,
 ECC_WG_ENTRY_POINT(straus_mul_k8_w4, 8, 2, ecc::A_M3, ecc::A_ZERO,
                    ecc::A_GENERIC)
 
-// Kernel 7 (m*P; ECC_ED_ENTRY_POINT: one thread a lane) and kernel 6-ed
-// (u*P + v*Q; ECC_EDG_ENTRY_POINT: the group loop) at a = -1 (Ed25519),
-// with uint32[16][4][8][n] tables and out x, y, z, t.
-ECC_ED_ENTRY_POINT(windowed_mul_ed_k8_w4, 8, 1, ecc::ED_A_M1)
+// Kernel 7 (m*P) and kernel 6-ed (u*P + v*Q) at a = -1 (Ed25519), with
+// uint32[16][4][8][n] tables and out x, y, z, t (ECC_EDG_ENTRY_POINT: the
+// group loop).
+ECC_EDG_ENTRY_POINT(windowed_mul_ed_k8_w4, 8, 1, ecc::ED_A_M1)
 ECC_EDG_ENTRY_POINT(straus_mul_ed_k8_w4, 8, 2, ecc::ED_A_M1)
 
 }  // extern "C"

@@ -15,13 +15,12 @@
 //   straus_wei448.cu at K = 14 (generic a: WEI448), windowed_p521.cu and
 //   straus_p521.cu at K = 17 (a = -3: P-521); and the Edwards kernels 7 in
 //   windowed_ed448.cu and 6-ed in straus_ed448.cu at K = 14 (a = 1: Ed448)
-//   and 6-ed in windowed.cu at K = 8 (a = -1: Ed25519);
+//   and 7 and 6-ed in windowed.cu at K = 8 (a = -1: Ed25519);
 // * one thread a lane (windowed_mul_kernel, windowed_mul_ed_kernel;
-//   field.cuh's ThreadField): kernel 7 at K = 8 (a = -1: Ed25519) in
-//   windowed.cu. The short-Weierstrass form stays for
-//   scripts/time_group_loop.py, which builds every entry point of kernels
-//   4, 6 and 6-ed in it (ECC_W_ENTRY_POINT, ECC_ED_ENTRY_POINT) as the
-//   measure of the group loop.
+//   field.cuh's ThreadField): no entry point of the package. Both forms
+//   stay for scripts/time_group_loop.py, which builds every entry point
+//   of kernels 4, 6, 7 and 6-ed in them (ECC_W_ENTRY_POINT,
+//   ECC_ED_ENTRY_POINT) as the measure of the group loop.
 //
 // Each file is one nvcc process of the parallel build.
 //

@@ -27,11 +27,10 @@ K = 14 (Edwards a = 1, Ed448), and for kernels 4 and 6 at K = 6 and 7
 (every a), K = 10 and 12 (a = -3 and generic a), K = 14 (generic a:
 WEI448), K = 16 (a = -3 and generic a: the 512-bit curves) and K = 17
 (a = -3, P-521). The K = 14, 16 and 17 instances are the counterpart of
-the TPU's large-K ``rows.py:RowOps`` backend. Kernels 4 and 6 at every K,
-kernel 6-ed at K = 8 and kernels 7 and 6-ed at K = 14 run a group of two
-or four threads a lane (``csrc/groupfield.cuh``, whose ``GroupShape``
-sets the shape at each K), kernel 7 at K = 8 one thread a lane;
-the wrappers and the layouts are the same. The
+the TPU's large-K ``rows.py:RowOps`` backend. All four kernels run a
+group of two or four threads a lane at every K (``csrc/groupfield.cuh``,
+whose ``GroupShape`` sets the shape at each K); the wrappers and the
+layouts are the same. The
 wrappers raise on any other shape or a for a tensor on the card.
 """
 

@@ -2,18 +2,20 @@
 """Time the port's kernels on the group field (csrc/groupfield.cuh, the
 sources as they are) against the one-thread build of the same C entry
 points, on one NVIDIA GPU: kernel 2 (the complete add, csrc/point.cuh's
-point_add_group_kernel) at every built (K, a), kernels 4 and 6 at every
-(K, a), kernel 6-ed at K = 8 (Ed25519) and kernels 7 and 6-ed at K = 14
+point_add_group_kernel) at every built (K, a), kernel 8a (the Edwards
+add, csrc/edpoint.cu's ed_add_group_kernel) at K = 8 and 14, kernels 4
+and 6 at every (K, a) and kernels 7 and 6-ed at K = 8 (Ed25519) and 14
 (Ed448). The one-thread build is the sources with ECC_W_ENTRY_POINT in
 place of ECC_WG_ENTRY_POINT, ECC_ED_ENTRY_POINT in place of
-ECC_EDG_ENTRY_POINT and launch_add in place of launch_add_g (ONE_THREAD).
+ECC_EDG_ENTRY_POINT and launch_add in place of launch_add_g and
+launch_ed_add_g (ONE_THREAD).
 
 --shapes TPIxTHREADS[i],... adds one build per shape, each with every
 shape table's lines in groupfield.cuh (GroupShape, AddShape:
 threads a lane, threads a block, "i" for inlined products) set to it in a
 copy; --curves NAME,... times only those curves' instances; --kernels
-add,mul times kernel 2 (add) or the window loops (mul) alone, and builds
-only their sources.
+add,mul times the adds (add: kernel 2, and 8a on the Edwards curves) or
+the window loops (mul) alone, and builds only their sources.
 
 Each instance runs at N = 8192 lanes on random points (64 distinct ones,
 random Z) and, for the window loops, random scalars; every build's output
@@ -63,10 +65,12 @@ KERNELS = ("add", "mul")
 # keep their names
 ONE_THREAD = ((r"(?<!#define )\bECC_WG_ENTRY_POINT\(", "ECC_W_ENTRY_POINT("),
               (r"(?<!#define )\bECC_EDG_ENTRY_POINT\(", "ECC_ED_ENTRY_POINT("),
-              (r"\blaunch_add_g<", "launch_add<"))
+              (r"\blaunch_add_g<", "launch_add<"),
+              (r"\blaunch_ed_add_g<", "launch_add<"))
 # the kernel families' shape tables, by base name (see ptxas_summary)
-TABLE_OF = {"point_add": "AddShape", "windowed_mul": "GroupShape",
-            "windowed_mul_ed": "GroupShape"}
+TABLE_OF = {"point_add": "AddShape", "ed_add": "AddShape",
+            "windowed_mul": "GroupShape", "windowed_mul_ed": "GroupShape"}
+ED_ADD_STEM = "edpoint"      # kernel 8a's source, csrc/edpoint.cu
 
 
 def one_thread(name, text):
@@ -113,9 +117,9 @@ def stems_for(curves, kernels):
         ed = name.startswith("ED")
         c = edwards.get_edwards_curve(name) if ed else params.get_curve(name)
         rows = []
-        if "add" in kernels and not ed:
-            rows.append(("add", 0, point.BUILT[(c.fp_ctx.k,
-                                                point.a_kind(c))][0]))
+        if "add" in kernels:
+            rows.append(("add", 0, ED_ADD_STEM if ed else point.BUILT[
+                (c.fp_ctx.k, point.a_kind(c))][0]))
         if "mul" in kernels:
             for npairs in (1, 2):
                 rows.append(("mul", npairs,
@@ -234,7 +238,7 @@ def main() -> int:
     from libecc_tpu_torch.curves.edwards import ExtPoint
     from libecc_tpu_torch.curves.shortw import PrjPoint
     from libecc_tpu_torch.nn import core as nn
-    from libecc_tpu_torch.ops.cuda import megamul, point
+    from libecc_tpu_torch.ops.cuda import edpoint, megamul, point
     from libecc_tpu_torch.ref import hostref as H
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -295,7 +299,13 @@ def main() -> int:
             return cls(*[c.fp_ctx.from_ints(col, dev) for col in cols])
 
         for kind, npairs, stem in todo:
-            if kind == "add":
+            if kind == "add" and ed:
+                ins = [*points(), *points()]
+                kname = build.kernel_name("ed_add", c.fp_ctx.k)
+
+                def run():
+                    return edpoint._launch("ed_add", c, ins)
+            elif kind == "add":
                 ins = [*points(), *points()]
                 kname = point.instance_name("point_add", c)
 

@@ -112,7 +112,8 @@ def test_verify_core_matches_jax_lane_for_lane():
            for v in (es, [ln[2] for ln in lanes], [ln[3] for ln in lanes])]
     jax_acc = np.asarray(jecdsa.verify_core(
         jc, pub_j, *[jnp.asarray(v) for v in esr])).tolist()
-    kb = convert.keys_from_jax(c, *[np.asarray(v) for v in pub_j])
+    kb = convert.keys_from_jax(c, *[np.asarray(v) for v in pub_j],
+                               "cpu")
     e, r, s = [convert.scalars_from_jax(v, c.q_ctx.k, "cpu") for v in esr]
     got = ecdsa.verify_core(c, kb.pub, e, r, s).tolist()
     assert got == jax_acc == want

@@ -658,8 +658,8 @@ def group_loop_lanes(c, dev, nmax=161):
 @pytest.mark.parametrize("name", GROUP_CURVES)
 def test_group_loop_kernels_match_plain_at_ragged_n(dev, name, npairs):
     """Kernel 4 (npairs 1) and kernel 6 (npairs 2) at each (K, a) of the
-    group loop, kernels 7 and 6-ed on Ed448 and Ed25519 (kernel 7 at
-    K = 8 on one thread a lane), against their plain versions, bitwise,
+    group loop, kernels 7 and 6-ed on Ed448 and Ed25519, all on the group
+    loop, against their plain versions, bitwise,
     at n = 1 (one group, a partial warp), 33 (every shape of
     csrc/groupfield.cuh's GroupShape gives a block 32 lanes: a partial
     block) and 161 (the last of six blocks holds one lane); where
@@ -764,6 +764,43 @@ def test_add_kernel_matches_plain_at_ragged_n(dev, name):
                                                  tag))(
         ctypes.byref(point.curve_struct(c)), point.ptr_array([empty] * 6),
         point.ptr_array([empty] * 3), 0,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc == 0
+    torch.cuda.synchronize()
+
+
+# -- kernel 8a on a group of threads a lane (K = 8 and 14) ------------------
+
+@pytest.mark.parametrize("name", ["ED25519", "ED448"])
+def test_ed_add_kernel_matches_plain_at_ragged_n(dev, name):
+    """Kernel 8a in csrc/groupfield.cuh's AddShape at K = 8 (a = -1) and
+    K = 14 (a = 1) against its plain version, bitwise, at n = 1 (one
+    group, a partial warp), 33 (a partial block at 32 lanes a block) and
+    161 (the last block holds one lane); at K = 14 with four threads a
+    lane the group's zero limbs are in play. Edge lanes first: P + O,
+    O + Q, O + O, P = Q, P = -Q, then random ones, random Z on every lane.
+    One plain run at 161 lanes serves the three, the lanes being
+    independent; each n launches once. With n = 0 the C entry point
+    returns 0 and so launched nothing."""
+    import ctypes
+    c = edwards.get_edwards_curve(name)
+    rng = np.random.RandomState(83)
+    nmax = 161
+    A, B = _ed_pairs(c, rng, nmax, dev)
+    want = edpoint.ed_add_plain(c, A, B)
+    k = c.fp_ctx.k
+    name_k = kernel_name("ed_add", k)
+    for n in (1, 33, nmax):
+        ins = [v[:, :n].contiguous() for v in (*A, *B)]
+        before = dict(edpoint.launches)
+        got = edpoint.ed_add(c, ExtPoint(*ins[:4]), ExtPoint(*ins[4:]))
+        assert edpoint.launches[name_k] == before[name_k] + 1
+        assert sum(edpoint.launches.values()) == sum(before.values()) + 1
+        assert all(torch.equal(g, w[:, :n]) for g, w in zip(got, want)), n
+    empty = torch.zeros((k, 0), dtype=torch.int32, device=dev)
+    rc = getattr(edpoint._lib(), f"ed_add_k{k}")(
+        ctypes.byref(edpoint.curve_struct(c)), point.ptr_array([empty] * 8),
+        point.ptr_array([empty] * 4), 0,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     assert rc == 0
     torch.cuda.synchronize()

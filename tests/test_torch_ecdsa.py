@@ -70,7 +70,8 @@ def test_verify_core_matches_jax():
     e_j, r_j, s_j = [jnn.batch_to_limbs(v, jc.q_ctx.k) for v in (es, rs, ss)]
     want = np.asarray(jecdsa.verify_core(jc, pub_j, jnp.asarray(e_j),
                                          jnp.asarray(r_j), jnp.asarray(s_j)))
-    kb = convert.keys_from_jax(C, *[np.asarray(v) for v in pub_j])
+    kb = convert.keys_from_jax(C, *[np.asarray(v) for v in pub_j],
+                               "cpu")
     e, r, s = [convert.scalars_from_jax(v, C.q_ctx.k, "cpu")
                for v in (e_j, r_j, s_j)]
     got = ecdsa.verify_core(C, kb.pub, e, r, s).numpy()

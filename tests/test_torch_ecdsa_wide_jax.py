@@ -128,7 +128,8 @@ def test_verify_core_matches_jax_lane_for_lane(case):
     c, wc, lanes, pub_j, esr, jax_acc = case
     assert (c.fp_ctx.k, c.a_is_m3) == ((12, True) if c.name == "SECP384R1"
                                        else (16, False))
-    kb = convert.keys_from_jax(c, *[np.asarray(v) for v in pub_j])
+    kb = convert.keys_from_jax(c, *[np.asarray(v) for v in pub_j],
+                               "cpu")
     e, r, s = [convert.scalars_from_jax(v, c.q_ctx.k, "cpu") for v in esr]
     got = ecdsa.verify_core(c, kb.pub, e, r, s).tolist()
     assert got == jax_acc

@@ -1,5 +1,5 @@
 """The text edits of scripts/time_group_loop.py, which times the group
-builds of kernels 2, 4, 6, 7 and 6-ed against their one-thread builds: a
+builds of kernels 2, 4, 6, 7, 6-ed and 8a against their one-thread builds: a
 swap that matched nothing would time the group build against itself, and
 a shape line the parser missed would time the default shape under another
 name. No CUDA needed: the edits are plain text."""
@@ -10,7 +10,7 @@ from pathlib import Path
 
 import pytest
 
-from libecc_tpu_torch.ops.cuda import build, megamul, point
+from libecc_tpu_torch.ops.cuda import build, edpoint, megamul, point
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(
@@ -20,7 +20,7 @@ _spec.loader.exec_module(tgl)
 
 _, STEMS = tgl.stems_for(tgl.CURVES, tgl.KERNELS)
 GROUP_FORMS = (r"^ECC_WG_ENTRY_POINT\(", r"^ECC_EDG_ENTRY_POINT\(",
-               r"\blaunch_add_g<")
+               r"\blaunch_add_g<", r"\blaunch_ed_add_g<")
 
 
 def _text(name):
@@ -33,11 +33,13 @@ def _uses(text, pats):
 
 
 def _entry_points():
-    """Every C entry point of kernels 2 (point.BUILT) and 4, 6, 7 and 6-ed
-    (megamul's table) -> its source stem."""
+    """Every C entry point of kernels 2 (point.BUILT), 8a (edpoint.BUILT)
+    and 4, 6, 7 and 6-ed (megamul's table) -> its source stem."""
     out = {f"point_add_k{k}_{tag}" if tag else f"point_add_k{k}": stem
            for (k, _), (stem, bases, tag) in point.BUILT.items()
            if "point_add" in bases}
+    out.update({f"ed_add_k{k}": tgl.ED_ADD_STEM
+                for k in edpoint.BUILT["ed_add"]})
     out.update({cname: stem for _, cname, stem in megamul._KERNELS.values()})
     return out
 
@@ -157,10 +159,43 @@ def test_ptxas_summary_keys_each_kernel_by_its_shape():
         "ptxas info    : Used 255 registers",
         "ptxas info    : Compiling entry function '_ZN3ecc28windowed_mul_"
         "ed_group_kernelILi8ELi0ELi2EEEvNS_10EdCurveCtxIXT_EEE'",
-        "ptxas info    : Used 80 registers"])
+        "ptxas info    : Used 80 registers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN3ecc19ed_add_group_kernelILi14ELi2EEEvNS_10EdCurveCtxIXT_EEE'",
+        "ptxas info    : Used 72 registers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN3ecc13ed_add_kernelILi14ELi2EEEvNS_10EdCurveCtxIXT_EEE'",
+        "ptxas info    : Used 168 registers"])
     got = tgl.ptxas_summary(log, shapes)
     add = tgl.shape_at(shapes, "AddShape", 17)
     ed = tgl.shape_at(shapes, "GroupShape", 8)
+    ed_add = tgl.shape_at(shapes, tgl.TABLE_OF["ed_add"], 14)
     assert got == {f"point_add_k17_a1_{add}": [96, 0, 0],
                    "point_add_k17_a1_t1": [255, 180, 200],
-                   f"windowed_mul_ed_k8_a0_p2_{ed}": [80, 0, 0]}
+                   f"windowed_mul_ed_k8_a0_p2_{ed}": [80, 0, 0],
+                   f"ed_add_k14_a2_{ed_add}": [72, 0, 0],
+                   "ed_add_k14_a2_t1": [168, 0, 0]}
+
+
+@pytest.mark.parametrize("name,k", [("ED25519", 8), ("ED448", 14)])
+def test_add_kernels_plan_the_edwards_add(name, k):
+    """--kernels add on an Edwards curve times kernel 8a, built from its
+    own source alone."""
+    plan, stems = tgl.stems_for([name], ("add",))
+    c, ed, rows = plan[name]
+    assert ed and c.fp_ctx.k == k
+    assert rows == [("add", 0, tgl.ED_ADD_STEM)]
+    assert stems == [tgl.ED_ADD_STEM]
+
+
+def test_every_group_kernel_has_a_shape_table():
+    """ptxas_summary keys each group kernel by the shape of its family's
+    table: every *_group_kernel of the sources has one, and it is a table
+    of groupfield.cuh."""
+    tables = tgl.shapes_of(_text(tgl.SHAPES_HEADER))
+    text = "\n".join(p.read_text() for p in build.CSRC.glob("*.cu*"))
+    bases = set(re.findall(r"\b(\w+)_group_kernel\b", text))
+    assert {"point_add", "ed_add", "windowed_mul",
+            "windowed_mul_ed"} <= bases
+    for base in bases:
+        assert tgl.TABLE_OF[base] in tables, base

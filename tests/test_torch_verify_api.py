@@ -117,6 +117,25 @@ def test_entry_points_default_to_the_card():
                                       + C.gy.to_bytes(32, "big")])
 
 
+def test_keys_from_jax_takes_the_device():
+    """convert.keys_from_jax has no default device: without one it raises
+    TypeError; with "cpu" it gives the key batch on the CPU, whose public
+    points are the coordinates it was given (15-bit limbs of the JAX
+    package's Montgomery domain R = 2^(15 K_j))."""
+    from libecc_tpu_torch import convert
+    p, kj = C.fp_ctx.p_int, 20
+    rj = 1 << (15 * kj)
+    pub = H.ec_mul(WC, 7, (C.gx, C.gy))
+    x, y, z = (convert.limbs15_from_ints([v * rj % p], kj)
+               for v in (pub[0], pub[1], 1))
+    with pytest.raises(TypeError):
+        convert.keys_from_jax(C, x, y, z)
+    kb = convert.keys_from_jax(C, x, y, z, "cpu")
+    assert kb.n == 1 and kb.alg == "ECDSA"
+    assert all(v.device.type == "cpu" for v in kb.pub)
+    assert [C.fp_ctx.to_ints(v)[0] for v in kb.pub] == [pub[0], pub[1], 1]
+
+
 HYGIENE = r"""
 import hashlib, sys
 import torch
