@@ -518,18 +518,20 @@ def run(torch) -> int:
     def row_shape(name):
         """The shape a kernel row runs in, from groupfield.cuh's tables:
         "t{TPI}x{threads}" (with "i" where products are inlined) on the
-        group field, "t1" on one thread a lane: kernels 2 and 8a in
-        AddShape, kernels 4, 6, 7 and 6-ed in GroupShape, kernels 1, 3, 5,
-        8b and 8c "t1"."""
+        group field, "t1" on one thread a lane: kernels 2, 3, 8a and 8b in
+        AddShape, kernels 4, 6, 7 and 6-ed in GroupShape, kernels 1, 5 and
+        8c "t1"."""
         for (k_, _, _, _), (kname, _, _) in megamul._KERNELS.items():
             if kname == name:
                 return build.shape("GroupShape", k_)
-        for (k_, _), (_, _, tag) in point.BUILT.items():
-            if name == point._count_name("point_add", k_, tag):
-                return build.shape("AddShape", k_)
-        for k_ in edpoint.BUILT["ed_add"]:
-            if name == build.kernel_name("ed_add", k_):
-                return build.shape("AddShape", k_)
+        for base in ("point_add", "point_dbl"):
+            for (k_, _), (_, _, tag) in point.BUILT.items():
+                if name == point._count_name(base, k_, tag):
+                    return build.shape("AddShape", k_)
+        for base in ("ed_add", "ed_dbl"):
+            for k_ in edpoint.BUILT[base]:
+                if name == build.kernel_name(base, k_):
+                    return build.shape("AddShape", k_)
         return "t1"
 
     def time_kernels(kern, path_counts, batch_counts, path, n=N):

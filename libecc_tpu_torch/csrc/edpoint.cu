@@ -16,15 +16,16 @@
 // K = 8 about 2,400 multiply-add slots for 384 bytes (at K = 14 about
 // 7,200 for 672 bytes), well above the card's slot-to-byte ratio; a
 // double is 4 squares and 4 products for 7 x 4K bytes. Design: the whole
-// formula in registers, the templates of edpoint.cuh. Kernel 8a runs on
-// a group of threads a lane (groupfield.cuh's GroupField, in the shape
-// its AddShape sets at each K), as kernel 2 does: one thread a lane gives
-// 8192 lanes 32 blocks of 256 on 32 of the 132 SMs, each product one
-// thread's chain of 2K^2 multiply-adds, and holds an extended point in
-// 4K registers (56 at K = 14). Kernels 8b and 8c run one thread a lane,
-// over field.cuh's ThreadField. Kernel 8c keeps the point in registers
-// across its n doublings (4n squares and 4n + 9 products for 384 bytes;
-// n is a run-time argument); with n = 0 it is the add, T of P included.
+// formula in registers, the templates of edpoint.cuh. Kernels 8a and 8b
+// run on a group of threads a lane (groupfield.cuh's formula_group_kernel
+// with EdAdd and EdDbl below, in the shape its AddShape sets at each K),
+// as kernels 2 and 3 do: one thread a lane gives 8192 lanes 32 blocks of
+// 256 on 32 of the 132 SMs, each product one thread's chain of 2K^2
+// multiply-adds, and holds an extended point in 4K registers (56 at
+// K = 14). Kernel 8c runs one thread a lane, over field.cuh's
+// ThreadField, and keeps the point in registers across its n doublings
+// (4n squares and 4n + 9 products for 384 bytes; n is a run-time
+// argument); with n = 0 it is the add, T of P included.
 #include "edpoint.cuh"
 #include "groupfield.cuh"
 
@@ -50,54 +51,6 @@ ed_add_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
   store_ext<K>(x3, y3, z3, t3, n, lane, ed_add<AK>(f, P, Q));
 }
 
-// Kernel 8a where a group of TPI threads carries a lane, in the shape
-// AddShape<K> (groupfield.cuh). ed_add is the same template over
-// GroupField, so the sequence of operations, and the projective result,
-// is ed_add_kernel's. A block of THREADS threads carries THREADS / TPI
-// lanes; the threads past lane n - 1 (in the last block) repeat lane
-// n - 1 and do not store, so that every warp's shuffles and votes see all
-// 32 threads (no early return, no branch on the thread's place in its
-// group).
-template <int K, int AK>
-__global__ void __launch_bounds__(AddShape<K>::kThreads,
-                                  AddShape<K>::kMinBlocks)
-ed_add_group_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
-                    const uint32_t* __restrict__ y1,
-                    const uint32_t* __restrict__ z1,
-                    const uint32_t* __restrict__ t1,
-                    const uint32_t* __restrict__ x2,
-                    const uint32_t* __restrict__ y2,
-                    const uint32_t* __restrict__ z2,
-                    const uint32_t* __restrict__ t2,
-                    uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
-                    uint32_t* __restrict__ z3, uint32_t* __restrict__ t3,
-                    long long n) {
-  using S = AddShape<K>;
-  using GF = GroupField<K, S::kTPI, S::kInline>;
-  __shared__ uint32_t consts[GF::kSharedWords];
-  GF::stage(consts, C);
-  const GF f(consts, C.f.pinv);
-  const long long g =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / S::kTPI;
-  const long long lane = g < n ? g : n - 1;
-  ExtOf<typename GF::E> P, Q;
-  P.x = f.load(x1, n, lane);
-  P.y = f.load(y1, n, lane);
-  P.z = f.load(z1, n, lane);
-  P.t = f.load(t1, n, lane);
-  Q.x = f.load(x2, n, lane);
-  Q.y = f.load(y2, n, lane);
-  Q.z = f.load(z2, n, lane);
-  Q.t = f.load(t2, n, lane);
-  const ExtOf<typename GF::E> R = ed_add<AK>(f, P, Q);
-  if (g < n) {
-    f.store(x3, n, lane, R.x);
-    f.store(y3, n, lane, R.y);
-    f.store(z3, n, lane, R.z);
-    f.store(t3, n, lane, R.t);
-  }
-}
-
 template <int K, int AK>
 __global__ void __launch_bounds__(256)
 ed_dbl_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
@@ -113,6 +66,43 @@ ed_dbl_kernel(const EdCurveCtx<K> C, const uint32_t* __restrict__ x1,
   const Fe<K> Z = load_fe<K>(z1, n, lane);
   store_ext<K>(x3, y3, z3, t3, n, lane, ed_dbl<AK>(f, X, Y, Z));
 }
+
+// The formulas of kernels 8a and 8b on the group field, for
+// groupfield.cuh's formula_group_kernel (in the shape AddShape<K>): ed_add
+// and ed_dbl (T taken), the same templates as ed_add_kernel's and
+// ed_dbl_kernel's, so the output is theirs bit for bit.
+// Kernel 8a: in x1, y1, z1, t1, x2, y2, z2, t2; out x3, y3, z3, t3.
+struct EdAdd {
+  template <int K>
+  using Ctx = EdCurveCtx<K>;
+  static constexpr int kIn = 8, kOut = 4;
+  template <int AK, class F, class E>
+  static __device__ __forceinline__ void apply(const F& f, const E* a,
+                                               E* r) {
+    const ExtOf<E> R = ed_add<AK>(f, ExtOf<E>{a[0], a[1], a[2], a[3]},
+                                  ExtOf<E>{a[4], a[5], a[6], a[7]});
+    r[0] = R.x;
+    r[1] = R.y;
+    r[2] = R.z;
+    r[3] = R.t;
+  }
+};
+
+// Kernel 8b: in x1, y1, z1; out x3, y3, z3, t3.
+struct EdDbl {
+  template <int K>
+  using Ctx = EdCurveCtx<K>;
+  static constexpr int kIn = 3, kOut = 4;
+  template <int AK, class F, class E>
+  static __device__ __forceinline__ void apply(const F& f, const E* a,
+                                               E* r) {
+    const ExtOf<E> R = ed_dbl<AK, true>(f, a[0], a[1], a[2]);
+    r[0] = R.x;
+    r[1] = R.y;
+    r[2] = R.z;
+    r[3] = R.t;
+  }
+};
 
 template <int K, int AK>
 __global__ void __launch_bounds__(256)
@@ -143,8 +133,9 @@ inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-// Kernel 8a one thread a lane: no entry point calls it; it stays as
-// scripts/time_group_loop.py's one-thread measure of launch_ed_add_g.
+// Kernel 8a one thread a lane: no entry point calls it; naming it in
+// place of launch_group's EdAdd instance in an entry point's text gives
+// scripts/time_group_loop.py's one-thread build.
 template <int K, int AK>
 int launch_add(const EdCurveCtx<K>* C, const uint32_t* const* in,
                uint32_t* const* out, long long n, void* stream) {
@@ -157,24 +148,7 @@ int launch_add(const EdCurveCtx<K>* C, const uint32_t* const* in,
   return (int)cudaGetLastError();
 }
 
-// Kernel 8a on the group field, in the shape AddShape<K>. The C entry
-// points call this one; naming launch_add in its place in their text
-// gives the one-thread build (scripts/time_group_loop.py).
-template <int K, int AK>
-int launch_ed_add_g(const EdCurveCtx<K>* C, const uint32_t* const* in,
-                    uint32_t* const* out, long long n, void* stream) {
-  using S = AddShape<K>;
-  if (C->a_kind != AK) return (int)cudaErrorInvalidValue;
-  const long long lanes = S::kThreads / S::kTPI;   // a block's lanes
-  if (n > 0)
-    ed_add_group_kernel<K, AK>
-        <<<(unsigned)((n + lanes - 1) / lanes), S::kThreads, 0,
-           (cudaStream_t)stream>>>(*C, in[0], in[1], in[2], in[3], in[4],
-                                   in[5], in[6], in[7], out[0], out[1],
-                                   out[2], out[3], n);
-  return (int)cudaGetLastError();
-}
-
+// Kernel 8b one thread a lane, in place of launch_group's EdDbl instance.
 template <int K, int AK>
 int launch_dbl(const EdCurveCtx<K>* C, const uint32_t* const* in,
                uint32_t* const* out, long long n, void* stream) {
@@ -210,23 +184,27 @@ extern "C" {
 // pointers).
 int ed_add_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
               uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_ed_add_g<8, ecc::ED_A_M1>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::EdAdd, 8, ecc::ED_A_M1>(C, in, out, n,
+                                                        stream);
 }
 
 // in: x1, y1, z1; out: x3, y3, z3, t3.
 int ed_dbl_k8(const ecc::EdCurveCtx<8>* C, const uint32_t* const* in,
               uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_dbl<8, ecc::ED_A_M1>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::EdDbl, 8, ecc::ED_A_M1>(C, in, out, n,
+                                                        stream);
 }
 
 int ed_add_k14(const ecc::EdCurveCtx<14>* C, const uint32_t* const* in,
                uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_ed_add_g<14, ecc::ED_A_1>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::EdAdd, 14, ecc::ED_A_1>(C, in, out, n,
+                                                        stream);
 }
 
 int ed_dbl_k14(const ecc::EdCurveCtx<14>* C, const uint32_t* const* in,
                uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_dbl<14, ecc::ED_A_1>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::EdDbl, 14, ecc::ED_A_1>(C, in, out, n,
+                                                        stream);
 }
 
 // in: x1, y1, z1, t1 (P), x2, y2, z2, t2 (T); out: 2^ndbl * P + T.

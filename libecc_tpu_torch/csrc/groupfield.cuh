@@ -1,7 +1,9 @@
-// The field of kernels 2, 4 and 6 at every K and of the Edwards kernels
-// 7, 6-ed and 8a at K = 8 and 14: a group of TPI neighbouring threads of
-// a warp carries one lane (sm_90a); the shape tables at the end of this
-// file set TPI and INLINE at each K, one table a kernel family.
+// The field of kernels 2, 3, 4 and 6 at every K and of the Edwards
+// kernels 7, 6-ed, 8a and 8b at K = 8 and 14: a group of TPI neighbouring
+// threads of a warp carries one lane (sm_90a); the shape tables at the
+// end of this file set TPI and INLINE at each K, one table a kernel
+// family. The kernel and launcher of the one-formula kernels (2, 3, 8a,
+// 8b) are at the end too.
 //
 // Thread j of a group (j = 0 .. TPI-1) holds limbs j*L .. j*L+L-1 of every
 // field element, L = ceil(K / TPI); the limbs from K up to L*TPI (K = 7,
@@ -54,6 +56,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "field.cuh"
 
@@ -489,19 +492,114 @@ template <> struct GroupShape<7> : Shape<4, 128, true> {};
 template <> struct GroupShape<8> : Shape<4, 128, true> {};
 template <> struct GroupShape<10> : Shape<2, 64, false> {};
 
-// AddShape: kernels 2 and 8a, one complete add a lane (point.cuh,
-// edpoint.cu). K = 7, 8 and K >= 12: four threads a lane in blocks of
-// 128, products inlined (0-4% faster than calls; two threads a lane ran
-// 1.13-1.50x slower at K >= 12, eight 1.19-1.61x slower at every K).
+// AddShape: kernels 2, 3, 8a and 8b, one point formula a lane (the
+// complete add or double, formula_group_kernel below). Measured on the
+// adds:
+// K = 7, 8 and K >= 12: four threads a lane in blocks of 128, products
+// inlined (0-4% faster than calls; two threads a lane ran 1.13-1.50x
+// slower at K >= 12, eight 1.19-1.61x slower at every K).
 // K = 6 and 10: two threads a lane, products called, 1.08-1.21x faster
 // than four inlined. One thread a lane was slower at every K: 1.24-1.34x
 // at K = 6 and 7, 1.5-3.5x above. The Edwards add (8a) at K = 8 and 14
 // ran fastest in the same shape: four called +1.0-1.5%, two called equal
 // at K = 8 and 1.27x slower at K = 14, eight inlined 1.18-1.25x slower;
-// one thread a lane 1.54x (K = 8) and 2.46x (K = 14) slower.
+// one thread a lane 1.54x (K = 8) and 2.46x (K = 14) slower. The doubles
+// (3, 8b) share the table: two threads called came 2.0-4.5% ahead on
+// three instances (secp224k1 at K = 7, secp256k1 at K = 8, Ed448's 8b at
+// K = 14) but behind on the others at the same K (up to 1.22x on WEI448's
+// kernel 3), and no other shape led at any K, so a table of their own,
+// keyed by K as this one is, would be the same table.
 template <int K>
 struct AddShape : Shape<4, 128, true> {};
 template <> struct AddShape<6> : Shape<2, 64, false> {};
 template <> struct AddShape<10> : Shape<2, 64, false> {};
+
+// Run launch(std::integral_constant<int, AK>{}) for the formula set AK
+// among AKs (the ones a library is built with) that is the curve's a_kind,
+// nothing for n <= 0, and return the CUDA error code. Another a_kind
+// launches nothing and returns cudaErrorInvalidValue.
+template <int AK, int... Rest, typename F>
+int launch_for_a(int a_kind, long long n, F&& launch) {
+  if (a_kind == AK) {
+    if (n > 0) launch(std::integral_constant<int, AK>{});
+    return (int)cudaGetLastError();
+  }
+  if constexpr (sizeof...(Rest) > 0) {
+    return launch_for_a<Rest...>(a_kind, n, launch);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+// A kernel's N coordinate rows (device pointers, each uint32[K][n]), passed
+// by value.
+template <int N>
+struct InRows {
+  const uint32_t* p[N];
+};
+template <int N>
+struct OutRows {
+  uint32_t* p[N];
+};
+
+// One point formula a lane on the group field, in the shape AddShape<K>:
+// kernels 2 and 3 (point.cuh's PointAdd, PointDbl) and 8a and 8b
+// (edpoint.cu's EdAdd, EdDbl). Op names the curve context (Op::Ctx<K>),
+// the Op::kIn coordinates it reads and the Op::kOut it writes, and
+// Op::apply<AK>(f, in, out) runs the formula: the same template text as
+// the one-thread kernel's, so the output is that kernel's bit for bit.
+// Why: one thread a lane gives 8192 lanes 32 blocks of 256, on 32 of the
+// 132 SMs, each product one thread's chain of 2K^2 multiply-adds, and
+// spills at K >= 14; a group of four gives 256 blocks of 128 and at most
+// 128 registers a thread. A block of THREADS threads carries THREADS / TPI
+// lanes; the threads past lane n - 1 (in the last block) repeat lane
+// n - 1 and do not store, so that every warp's shuffles and votes see all
+// 32 threads (no early return, no branch on the thread's place in its
+// group or on the data).
+template <class Op, int K, int AK>
+__global__ void __launch_bounds__(AddShape<K>::kThreads,
+                                  AddShape<K>::kMinBlocks)
+formula_group_kernel(const typename Op::template Ctx<K> C,
+                     const InRows<Op::kIn> in, const OutRows<Op::kOut> out,
+                     long long n) {
+  using S = AddShape<K>;
+  using GF = GroupField<K, S::kTPI, S::kInline>;
+  __shared__ uint32_t consts[GF::kSharedWords];
+  GF::stage(consts, C);
+  const GF f(consts, C.f.pinv);
+  const long long g =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / S::kTPI;
+  const long long lane = g < n ? g : n - 1;
+  typename GF::E a[Op::kIn], r[Op::kOut];
+#pragma unroll
+  for (int i = 0; i < Op::kIn; ++i) a[i] = f.load(in.p[i], n, lane);
+  Op::template apply<AK>(f, a, r);
+  if (g < n) {
+#pragma unroll
+    for (int i = 0; i < Op::kOut; ++i) f.store(out.p[i], n, lane, r[i]);
+  }
+}
+
+// The formula Op at K for the formula sets AKs, in the shape AddShape<K>.
+// in, out: Op::kIn and Op::kOut device pointers. The C entry points of
+// kernels 2, 3, 8a and 8b call this one; naming the one-thread launcher
+// in its place in their text gives the one-thread build
+// (scripts/time_group_loop.py).
+template <class Op, int K, int... AKs>
+int launch_group(const typename Op::template Ctx<K>* C,
+                 const uint32_t* const* in, uint32_t* const* out,
+                 long long n, void* stream) {
+  using S = AddShape<K>;
+  const long long lanes = S::kThreads / S::kTPI;   // a block's lanes
+  return launch_for_a<AKs...>(C->a_kind, n, [&](auto ak) {
+    InRows<Op::kIn> i;
+    OutRows<Op::kOut> o;
+    for (int k = 0; k < Op::kIn; ++k) i.p[k] = in[k];
+    for (int k = 0; k < Op::kOut; ++k) o.p[k] = out[k];
+    formula_group_kernel<Op, K, decltype(ak)::value>
+        <<<(unsigned)((n + lanes - 1) / lanes), S::kThreads, 0,
+           (cudaStream_t)stream>>>(*C, i, o, n);
+  });
+}
 
 }  // namespace ecc

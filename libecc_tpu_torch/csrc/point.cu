@@ -13,12 +13,13 @@
 // (12 + 2 by b3 for a = -3) for 9 x 4K bytes of traffic per lane; at K = 8
 // that is ~3,700 multiply-add slots for 288 bytes, well above the card's
 // slot-to-byte ratio. Design: the whole formula in registers (the TPU
-// kernel's point of keeping intermediates in VMEM), the a-specialisation
-// a compile-time template flag so each instantiation carries only its own
-// formula set. Kernel 2 runs on a group of threads a lane (point.cuh's
-// point_add_group_kernel over groupfield.cuh's field, in the shape its
-// AddShape sets at each K), so that 8192 lanes fill every SM; kernels 3
-// and 5 run one thread a lane.
+// kernel's point of keeping intermediates in VMEM), the a-specialisation a
+// compile-time template flag so each instantiation carries only its own
+// formula set. Kernels 2 and 3 run on a group of threads a lane
+// (groupfield.cuh's formula_group_kernel with point.cuh's PointAdd and
+// PointDbl over groupfield.cuh's field, in the shape its AddShape sets at
+// each K), so that 8192 lanes fill every SM; kernel 5 runs one thread a
+// lane.
 //
 // Kernel 5 (public points only, as the reference's block; its template
 // is point.cuh's point_dbln_add_kernel): to_jac with the identity select,
@@ -34,15 +35,15 @@ extern "C" {
 // in: x1, y1, z1, x2, y2, z2; out: x3, y3, z3 (device pointers).
 int point_add_k8(const ecc::CurveCtx<8>* C, const uint32_t* const* in,
                  uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_add_g<8, ecc::A_M3, ecc::A_ZERO, ecc::A_GENERIC>(
-      C, in, out, n, stream);
+  return ecc::launch_group<ecc::PointAdd, 8, ecc::A_M3, ecc::A_ZERO,
+                           ecc::A_GENERIC>(C, in, out, n, stream);
 }
 
 // in: x1, y1, z1; out: x3, y3, z3.
 int point_dbl_k8(const ecc::CurveCtx<8>* C, const uint32_t* const* in,
                  uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_dbl<8, ecc::A_M3, ecc::A_ZERO, ecc::A_GENERIC>(
-      C, in, out, n, stream);
+  return ecc::launch_group<ecc::PointDbl, 8, ecc::A_M3, ecc::A_ZERO,
+                           ecc::A_GENERIC>(C, in, out, n, stream);
 }
 
 // in: x1, y1, z1 (P), x2, y2, z2 (T); out: 2^ndbl * P + T.

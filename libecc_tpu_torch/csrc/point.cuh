@@ -237,17 +237,19 @@ __device__ __forceinline__ void store_pt(uint32_t* x, uint32_t* y,
   store_fe<K>(z, n, lane, P.z);
 }
 
-// Kernels 2, 3 and 5 as templates over K and the formula set AK. Kernels
-// 3 and 5 run one thread a lane, the whole formula in registers; kernel 2
-// runs on a group of threads a lane (point_add_group_kernel below) in the
-// shape that groupfield.cuh's AddShape sets at each K. Its one-thread form
-// (point_add_kernel, launch_add) stays as scripts/time_group_loop.py's
-// measure of the group kernel. point.cu builds them at K = 8
-// for every a, point_wide.cu at K = 12 (a = -3) and K = 16 (generic a),
-// point_p521.cu at K = 17 (a = -3), point_wide_alt.cu kernels 2 and 3 at
-// K = 12 (generic a) and all three at K = 16 (a = -3), point_wei448.cu
-// all three at K = 14 (generic a: WEI448), point_small.cu kernels 2 and 3
-// at K = 6 and 7 (every a) and K = 10 (a = -3, generic a).
+// Kernels 2, 3 and 5 as templates over K and the formula set AK. Kernel
+// 5 runs one thread a lane, the whole formula in registers; kernels 2 and
+// 3 run on a group of threads a lane (groupfield.cuh's
+// formula_group_kernel with PointAdd and PointDbl below) in the shape
+// that groupfield.cuh's AddShape sets at each K. Their one-thread forms
+// (point_add_kernel, launch_add; point_dbl_kernel, launch_dbl) stay as
+// scripts/time_group_loop.py's measure of the group kernels. point.cu
+// builds them at K = 8 for every a, point_wide.cu at K = 12 (a = -3) and
+// K = 16 (generic a), point_p521.cu at K = 17 (a = -3), point_wide_alt.cu
+// kernels 2 and 3 at K = 12 (generic a) and all three at K = 16 (a = -3),
+// point_wei448.cu all three at K = 14 (generic a: WEI448), point_small.cu
+// kernels 2 and 3 at K = 6 and 7 (every a) and K = 10 (a = -3, generic
+// a).
 template <int K, int AK>
 __global__ void __launch_bounds__(256)
 point_add_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
@@ -304,50 +306,40 @@ point_dbl_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
               rcb_dbl<AK>(f, load_pt<K>(x1, y1, z1, n, lane)));
 }
 
-// Kernel 2 where a group of TPI threads carries a lane (groupfield.cuh),
-// in the shape AddShape<K>. rcb_add is the same template over GroupField,
-// so the sequence of operations, and the result, is point_add_kernel's,
-// (0 : 0 : 0) included. Why: one thread a lane gives 8192 lanes 32 blocks
-// of 256, on 32 of the 132 SMs, each product one thread's chain of 2K^2
-// multiply-adds, and spills at K >= 14; a group of four gives 256 blocks
-// of 128 and at most 128 registers a thread. A block of THREADS threads
-// carries THREADS / TPI lanes; the threads past lane n - 1 (in the last
-// block) repeat lane n - 1 and do not store, so that every warp's
-// shuffles and votes see all 32 threads (no early return, no branch on
-// the thread's place in its group).
-template <int K, int AK>
-__global__ void __launch_bounds__(AddShape<K>::kThreads,
-                                  AddShape<K>::kMinBlocks)
-point_add_group_kernel(const CurveCtx<K> C, const uint32_t* __restrict__ x1,
-                       const uint32_t* __restrict__ y1,
-                       const uint32_t* __restrict__ z1,
-                       const uint32_t* __restrict__ x2,
-                       const uint32_t* __restrict__ y2,
-                       const uint32_t* __restrict__ z2,
-                       uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
-                       uint32_t* __restrict__ z3, long long n) {
-  using S = AddShape<K>;
-  using GF = GroupField<K, S::kTPI, S::kInline>;
-  __shared__ uint32_t consts[GF::kSharedWords];
-  GF::stage(consts, C);
-  const GF f(consts, C.f.pinv);
-  const long long g =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / S::kTPI;
-  const long long lane = g < n ? g : n - 1;
-  PtOf<typename GF::E> P, Q;
-  P.x = f.load(x1, n, lane);
-  P.y = f.load(y1, n, lane);
-  P.z = f.load(z1, n, lane);
-  Q.x = f.load(x2, n, lane);
-  Q.y = f.load(y2, n, lane);
-  Q.z = f.load(z2, n, lane);
-  const PtOf<typename GF::E> R = rcb_add<AK>(f, P, Q);
-  if (g < n) {
-    f.store(x3, n, lane, R.x);
-    f.store(y3, n, lane, R.y);
-    f.store(z3, n, lane, R.z);
+// The formulas of kernels 2 and 3 on the group field, for groupfield.cuh's
+// formula_group_kernel (in the shape AddShape<K>): rcb_add and rcb_dbl,
+// the same templates as point_add_kernel's and point_dbl_kernel's, so
+// the output is theirs bit for bit, (0 : 0 : 0) included.
+// Kernel 2: in x1, y1, z1, x2, y2, z2; out x3, y3, z3.
+struct PointAdd {
+  template <int K>
+  using Ctx = CurveCtx<K>;
+  static constexpr int kIn = 6, kOut = 3;
+  template <int AK, class F, class E>
+  static __device__ __forceinline__ void apply(const F& f, const E* a,
+                                               E* r) {
+    const PtOf<E> R = rcb_add<AK>(f, PtOf<E>{a[0], a[1], a[2]},
+                                  PtOf<E>{a[3], a[4], a[5]});
+    r[0] = R.x;
+    r[1] = R.y;
+    r[2] = R.z;
   }
-}
+};
+
+// Kernel 3: in x1, y1, z1; out x3, y3, z3.
+struct PointDbl {
+  template <int K>
+  using Ctx = CurveCtx<K>;
+  static constexpr int kIn = 3, kOut = 3;
+  template <int AK, class F, class E>
+  static __device__ __forceinline__ void apply(const F& f, const E* a,
+                                               E* r) {
+    const PtOf<E> R = rcb_dbl<AK>(f, PtOf<E>{a[0], a[1], a[2]});
+    r[0] = R.x;
+    r[1] = R.y;
+    r[2] = R.z;
+  }
+};
 
 constexpr int kPointThreads = 256;
 
@@ -355,25 +347,11 @@ inline unsigned point_blocks(long long n) {
   return (unsigned)((n + kPointThreads - 1) / kPointThreads);
 }
 
-// Run launch(std::integral_constant<int, AK>{}) for the formula set AK
-// among AKs (the ones a library is built with) that is the curve's a_kind,
-// nothing for n <= 0, and return the CUDA error code. Another a_kind
-// launches nothing and returns cudaErrorInvalidValue.
-template <int AK, int... Rest, typename F>
-int launch_for_a(int a_kind, long long n, F&& launch) {
-  if (a_kind == AK) {
-    if (n > 0) launch(std::integral_constant<int, AK>{});
-    return (int)cudaGetLastError();
-  }
-  if constexpr (sizeof...(Rest) > 0) {
-    return launch_for_a<Rest...>(a_kind, n, launch);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Kernel 2 at K for the formula sets AKs, one thread a lane. in: x1, y1,
-// z1, x2, y2, z2; out: x3, y3, z3 (device pointers).
+// Kernel 2 at K for the formula sets AKs, one thread a lane: no entry
+// point calls it; naming it in place of launch_group's PointAdd instance
+// in an entry point's text gives the one-thread build
+// (scripts/time_group_loop.py). in: x1, y1, z1, x2, y2, z2; out: x3, y3,
+// z3 (device pointers).
 template <int K, int... AKs>
 int launch_add(const CurveCtx<K>* C, const uint32_t* const* in,
                uint32_t* const* out, long long n, void* stream) {
@@ -385,23 +363,8 @@ int launch_add(const CurveCtx<K>* C, const uint32_t* const* in,
   });
 }
 
-// Kernel 2 on the group field, in the shape AddShape<K>. The C entry
-// points call this one; naming launch_add in its place in their text
-// gives the one-thread build (scripts/time_group_loop.py).
-template <int K, int... AKs>
-int launch_add_g(const CurveCtx<K>* C, const uint32_t* const* in,
-                 uint32_t* const* out, long long n, void* stream) {
-  using S = AddShape<K>;
-  const long long lanes = S::kThreads / S::kTPI;   // a block's lanes
-  return launch_for_a<AKs...>(C->a_kind, n, [&](auto ak) {
-    point_add_group_kernel<K, decltype(ak)::value>
-        <<<(unsigned)((n + lanes - 1) / lanes), S::kThreads, 0,
-           (cudaStream_t)stream>>>(*C, in[0], in[1], in[2], in[3], in[4],
-                                   in[5], out[0], out[1], out[2], n);
-  });
-}
-
-// Kernel 3 likewise, one thread a lane. in: x1, y1, z1; out: x3, y3, z3.
+// Kernel 3 likewise, one thread a lane, in place of launch_group's
+// PointDbl instance. in: x1, y1, z1; out: x3, y3, z3.
 template <int K, int... AKs>
 int launch_dbl(const CurveCtx<K>* C, const uint32_t* const* in,
                uint32_t* const* out, long long n, void* stream) {
@@ -429,8 +392,8 @@ int launch_dbln_add(const CurveCtx<K>* C, const uint32_t* const* in,
 
 }  // namespace ecc
 
-// The C entry points of kernels 2 (in AddShape<K>) and 3 (one thread a
-// lane) for one (K, formula set AK), named point_add_k<K>_<TAG> and
+// The C entry points of kernels 2 and 3 (both in AddShape<K>) for one
+// (K, formula set AK), named point_add_k<K>_<TAG> and
 // point_dbl_k<K>_<TAG> (TAG: m3, ga or a0 for a = -3, generic a, a = 0).
 // in: x1, y1, z1[, x2, y2, z2]; out: x3, y3, z3 (each uint32[K][n]). A
 // context of another a_kind returns cudaErrorInvalidValue and launches
@@ -440,13 +403,15 @@ int launch_dbln_add(const CurveCtx<K>* C, const uint32_t* const* in,
                              const uint32_t* const* in,                    \
                              uint32_t* const* out, long long n,            \
                              void* stream) {                               \
-    return ecc::launch_add_g<K, AK>(C, in, out, n, stream);                \
+    return ecc::launch_group<ecc::PointAdd, K, AK>(C, in, out, n,      \
+                                               stream);                   \
   }                                                                        \
   int point_dbl_k##K##_##TAG(const ecc::CurveCtx<K>* C,                    \
                              const uint32_t* const* in,                    \
                              uint32_t* const* out, long long n,            \
                              void* stream) {                               \
-    return ecc::launch_dbl<K, AK>(C, in, out, n, stream);                  \
+    return ecc::launch_group<ecc::PointDbl, K, AK>(C, in, out, n,      \
+                                               stream);                   \
   }
 
 // The C entry point NAME of kernel 5 for one (K, formula set AK). in: x1,

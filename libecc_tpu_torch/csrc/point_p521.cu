@@ -13,14 +13,15 @@
 // of the port (nothing in the templates pairs limbs).
 //
 // Bound on the H100: integer-multiply issue, as at K = 8. An a = -3 add is
-// 14 products for 9 x 68 bytes a lane, about 16,000 multiply-add slots;
-// a double 3 squares and 10 products. Design: kernel 2 on a group of
-// threads a lane (point.cuh's point_add_group_kernel, in the shape
-// groupfield.cuh's AddShape sets; the limbs past 17 are zero), no more
-// than 128 registers and no spill. Kernels 3 and 5 run one thread a lane,
-// the formula in registers; a point is 51 registers at K = 17, so the two
-// operands and the temporaries pass the 255 a thread may hold and the
-// compiler spills (ptxas -v, chip_smoke.py prints it): later work.
+// 14 products for 9 x 68 bytes a lane, about 16,000 multiply-add slots; a
+// double 3 squares and 10 products. Design: kernels 2 and 3 on a group of
+// threads a lane (groupfield.cuh's formula_group_kernel with point.cuh's
+// PointAdd and PointDbl, in the shape groupfield.cuh's AddShape sets; the
+// limbs past 17 are zero), no more than 128 registers and no spill. Kernel
+// 5 runs one thread a lane, the formula in registers; a point is 51
+// registers at K = 17, so the two operands and the temporaries pass the 255
+// a thread may hold and the compiler spills (ptxas -v, chip_smoke.py prints
+// it): later work.
 #include "point.cuh"
 
 extern "C" {
@@ -29,12 +30,14 @@ extern "C" {
 // a = -3 only: another a_kind returns cudaErrorInvalidValue.
 int point_add_k17(const ecc::CurveCtx<17>* C, const uint32_t* const* in,
                   uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_add_g<17, ecc::A_M3>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::PointAdd, 17, ecc::A_M3>(C, in, out, n,
+                                                         stream);
 }
 
 int point_dbl_k17(const ecc::CurveCtx<17>* C, const uint32_t* const* in,
                   uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_dbl<17, ecc::A_M3>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::PointDbl, 17, ecc::A_M3>(C, in, out, n,
+                                                         stream);
 }
 
 // Kernel 5: in: P's x, y, z, then T's; out: 2^ndbl * P + T.

@@ -15,13 +15,13 @@
 //
 // Bound on the H100: integer-multiply issue, as at K = 8. An add is 14
 // field products for a = -3 and a = 0 (12 + 2 by b3) and 18 for generic a
-// (4 more, by a and a^2), a double 3 squares and 10 or 14 products, for
-// 9 or 6 x 4K bytes a lane: about 2,100 multiply-add slots an a = -3 add
-// at K = 6 for 216 bytes. Design: kernel 2 on a group of threads a lane
-// (point.cuh's point_add_group_kernel, in the shape groupfield.cuh's
-// AddShape sets at each K: two threads at K = 6 and 10, four at K = 7),
-// kernel 3 one thread a lane, the formula in registers, the
-// a-specialisation a template flag.
+// (4 more, by a and a^2), a double 3 squares and 10 or 14 products, for 9
+// or 6 x 4K bytes a lane: about 2,100 multiply-add slots an a = -3 add at K
+// = 6 for 216 bytes. Design: kernels 2 and 3 on a group of threads a lane
+// (groupfield.cuh's formula_group_kernel with point.cuh's PointAdd and
+// PointDbl, in the shape groupfield.cuh's AddShape sets at each K: two
+// threads at K = 6 and 10, four at K = 7), the a-specialisation a template
+// flag.
 #include "point.cuh"
 
 extern "C" {

@@ -15,15 +15,16 @@
 // subgroup check (sig/keys.py:order_check_mask, kernel 4 at K = 14 over
 // these tables).
 //
-// Bound on the H100: integer-multiply issue. A generic-a add is 18
-// products for 9 x 56 bytes a lane, about 29,000 multiply-add slots; a
-// double 3 squares and 14 products; kernel 5 2 + 7n squares and 22 + 3n
-// products. Design: kernel 2 on a group of threads a lane (point.cuh's
-// point_add_group_kernel, in the shape groupfield.cuh's AddShape sets),
-// no more than 128 registers and no spill; kernels 3 and 5 one thread a
-// lane, the formula in registers: a point is 42 registers at K = 14, so
-// the two operands and the temporaries pass the 255 a thread may hold and
-// the compiler spills (ptxas -v, chip_smoke.py prints it).
+// Bound on the H100: integer-multiply issue. A generic-a add is 18 products
+// for 9 x 56 bytes a lane, about 29,000 multiply-add slots; a double 3
+// squares and 14 products; kernel 5 2 + 7n squares and 22 + 3n products.
+// Design: kernels 2 and 3 on a group of threads a lane (groupfield.cuh's
+// formula_group_kernel with point.cuh's PointAdd and PointDbl, in the shape
+// groupfield.cuh's AddShape sets), no more than 128 registers and no spill;
+// kernel 5 one thread a lane, the formula in registers: a point is 42
+// registers at K = 14, so the two operands and the temporaries pass the 255
+// a thread may hold and the compiler spills (ptxas -v, chip_smoke.py prints
+// it).
 #include "point.cuh"
 
 extern "C" {

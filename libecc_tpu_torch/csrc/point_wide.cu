@@ -17,17 +17,17 @@
 // backend; here it is the same template at K = 12.
 //
 // Bound on the H100: integer-multiply issue, as at K = 8. A generic-a add
-// is 18 products (12 + 2 by b3 + 4 by a and a^2) for 9 x 64 bytes a lane
-// at K = 16, about 37,000 multiply-add slots; an a = -3 add at K = 12 is
-// 14 products for 9 x 48 bytes. Design: kernel 2 on a group of threads a
-// lane (point.cuh's point_add_group_kernel, in the shape groupfield.cuh's
-// AddShape sets), each thread a share of every element, no more than 128
-// registers and no spill. Kernels 3 and 5 run one thread a lane, the
-// formula in registers; at K = 16 a point is 48 registers, so the two
-// operands and the formula's temporaries pass the 255 a thread may hold
-// and the compiler spills (ptxas -v, chip_smoke.py prints it): later
-// work. Kernel 5 keeps the Jacobian point in registers across its n
-// doublings (per lane 2 + 5n squares and 18 + 3n products at a = -3,
+// is 18 products (12 + 2 by b3 + 4 by a and a^2) for 9 x 64 bytes a lane at
+// K = 16, about 37,000 multiply-add slots; an a = -3 add at K = 12 is 14
+// products for 9 x 48 bytes. Design: kernels 2 and 3 on a group of threads
+// a lane (groupfield.cuh's formula_group_kernel with point.cuh's PointAdd
+// and PointDbl, in the shape groupfield.cuh's AddShape sets), each thread a
+// share of every element, no more than 128 registers and no spill. Kernel 5
+// runs one thread a lane, the formula in registers; at K = 16 a point is 48
+// registers, so the two operands and the formula's temporaries pass the 255
+// a thread may hold and the compiler spills (ptxas -v, chip_smoke.py prints
+// it): later work. Kernel 5 keeps the Jacobian point in registers across
+// its n doublings (per lane 2 + 5n squares and 18 + 3n products at a = -3,
 // 2 + 7n and 22 + 3n for generic a) for an add's bytes.
 #include "point.cuh"
 
@@ -37,23 +37,27 @@ extern "C" {
 // a = -3 only: another a_kind returns cudaErrorInvalidValue.
 int point_add_k12(const ecc::CurveCtx<12>* C, const uint32_t* const* in,
                   uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_add_g<12, ecc::A_M3>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::PointAdd, 12, ecc::A_M3>(C, in, out, n,
+                                                         stream);
 }
 
 int point_dbl_k12(const ecc::CurveCtx<12>* C, const uint32_t* const* in,
                   uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_dbl<12, ecc::A_M3>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::PointDbl, 12, ecc::A_M3>(C, in, out, n,
+                                                         stream);
 }
 
 // As above with uint32[16][n] coordinates; generic a only.
 int point_add_k16(const ecc::CurveCtx<16>* C, const uint32_t* const* in,
                   uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_add_g<16, ecc::A_GENERIC>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::PointAdd, 16, ecc::A_GENERIC>(C, in, out,
+                                                              n, stream);
 }
 
 int point_dbl_k16(const ecc::CurveCtx<16>* C, const uint32_t* const* in,
                   uint32_t* const* out, long long n, void* stream) {
-  return ecc::launch_dbl<16, ecc::A_GENERIC>(C, in, out, n, stream);
+  return ecc::launch_group<ecc::PointDbl, 16, ecc::A_GENERIC>(C, in, out,
+                                                              n, stream);
 }
 
 // Kernel 5: in: P's x, y, z, then T's; out: 2^ndbl * P + T. The same a

@@ -16,13 +16,13 @@
 //
 // Bound on the H100: integer-multiply issue. A generic-a add at K = 12 is
 // 18 products for 9 x 48 bytes a lane; an a = -3 add at K = 16 is 14
-// products for 9 x 64 bytes. Design: kernel 2 on a group of threads a
-// lane (point.cuh's point_add_group_kernel, in the shape groupfield.cuh's
-// AddShape sets), no more than 128 registers and no spill; kernels 3 and
-// 5 one thread a lane, the formula in registers: at K = 16 a point is 48
-// registers, so the two operands and the temporaries pass the 255 a
-// thread may hold and the compiler spills (ptxas -v, chip_smoke.py prints
-// it).
+// products for 9 x 64 bytes. Design: kernels 2 and 3 on a group of threads
+// a lane (groupfield.cuh's formula_group_kernel with point.cuh's PointAdd
+// and PointDbl, in the shape groupfield.cuh's AddShape sets), no more than
+// 128 registers and no spill; kernel 5 one thread a lane, the formula in
+// registers: at K = 16 a point is 48 registers, so the two operands and the
+// temporaries pass the 255 a thread may hold and the compiler spills (ptxas
+// -v, chip_smoke.py prints it).
 #include "point.cuh"
 
 extern "C" {

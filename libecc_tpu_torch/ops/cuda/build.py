@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # groupfield.cuh's shape tables (GroupShape: kernels 4, 6, 7 and 6-ed;
-# AddShape: kernel 2): a table's default line and each K's own
+# AddShape: kernels 2, 3, 8a and 8b): a table's default line and each
+# K's own
 SHAPES_HEADER = "groupfield.cuh"
 SHAPE_RE = re.compile(r"struct (\w+Shape)(?:<(\d+)>)? : "
                       r"Shape<(\d+), (\d+), (true|false)>")

@@ -8,8 +8,8 @@ operation on plain tensor field operations, for every a (add-2008-hwcd-3
 for a = -1, add-2008-hwcd otherwise; dbl-2008-hwcd). Kernels 8a and 8b
 are built for a = -1 at K = 8 (Ed25519) and a = 1 at K = 14 (Ed448, where
 they stand for the TPU's large-K ``rows.py:RowOps`` backend), and so is
-kernel 8c (``BUILT``). Kernel 8a runs a group of four threads a lane
-(``csrc/groupfield.cuh``'s ``AddShape``), 8b and 8c one thread a lane.
+kernel 8c (``BUILT``). Kernels 8a and 8b run a group of four threads a
+lane (``csrc/groupfield.cuh``'s ``AddShape``), 8c one thread a lane.
 On the card any other (K, a) raises.
 Wrappers launch the kernels for tensors on the card and take the plain
 versions only for tensors on the CPU.

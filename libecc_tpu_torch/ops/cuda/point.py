@@ -4,10 +4,10 @@ a) instances in ``csrc/point_wide.cu``, the K = 17 ones in
 ``csrc/point_p521.cu``, the K = 14 (generic a: WEI448) ones in
 ``csrc/point_wei448.cu``, kernels 2 and 3 at K = 6, 7 and 10 in
 ``csrc/point_small.cu``, at K = 12 (generic a) and all three at K = 16
-(a = -3) in ``csrc/point_wide_alt.cu``). Kernel 2 runs a group of
-threads a lane (``csrc/point.cuh``'s ``point_add_group_kernel``, in the
-shape ``csrc/groupfield.cuh``'s ``AddShape`` sets at each K), kernels 3
-and 5 one thread a lane.
+(a = -3) in ``csrc/point_wide_alt.cu``). Kernels 2 and 3 run a group of
+threads a lane (``csrc/groupfield.cuh``'s ``formula_group_kernel`` with
+``csrc/point.cuh``'s ``PointAdd`` and ``PointDbl``, in the shape its
+``AddShape`` sets at each K), kernel 5 one thread a lane.
 
 Counterparts of ``libecc_tpu/ops/pallas/point.py:point_add`` /
 ``point_dbl`` / ``point_dbln_add``. The plain versions below evaluate the

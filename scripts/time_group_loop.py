@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Time the port's kernels on the group field (csrc/groupfield.cuh, the
 sources as they are) against the one-thread build of the same C entry
-points, on one NVIDIA GPU: kernel 2 (the complete add, csrc/point.cuh's
-point_add_group_kernel) at every built (K, a), kernel 8a (the Edwards
-add, csrc/edpoint.cu's ed_add_group_kernel) at K = 8 and 14, kernels 4
-and 6 at every (K, a) and kernels 7 and 6-ed at K = 8 (Ed25519) and 14
-(Ed448). The one-thread build is the sources with ECC_W_ENTRY_POINT in
-place of ECC_WG_ENTRY_POINT, ECC_ED_ENTRY_POINT in place of
-ECC_EDG_ENTRY_POINT and launch_add in place of launch_add_g and
-launch_ed_add_g (ONE_THREAD).
+points, on one NVIDIA GPU: kernels 2 and 3 (the complete add and double,
+csrc/groupfield.cuh's formula_group_kernel with csrc/point.cuh's PointAdd
+and PointDbl) at every built (K, a), kernels 8a and 8b (the Edwards add
+and double, the same kernel with csrc/edpoint.cu's EdAdd and EdDbl) at
+K = 8 and 14, kernels 4 and 6 at every (K, a) and kernels 7 and 6-ed at
+K = 8 (Ed25519) and 14 (Ed448). The one-thread build is the sources with
+ECC_W_ENTRY_POINT in place of ECC_WG_ENTRY_POINT, ECC_ED_ENTRY_POINT in
+place of ECC_EDG_ENTRY_POINT, launch_add in place of launch_group's
+PointAdd and EdAdd instances, and launch_dbl in place of its PointDbl and
+EdDbl instances (ONE_THREAD).
 
 --shapes TPIxTHREADS[i],... adds one build per shape, each with every
 shape table's lines in groupfield.cuh (GroupShape, AddShape:
 threads a lane, threads a block, "i" for inlined products) set to it in a
 copy; --curves NAME,... times only those curves' instances; --kernels
-add,mul times the adds (add: kernel 2, and 8a on the Edwards curves) or
+add,dbl,mul times the adds (add: kernel 2, and 8a on the Edwards
+curves), the doubles (dbl: kernel 3, and 8b on the Edwards curves) or
 the window loops (mul) alone, and builds only their sources.
 
 Each instance runs at N = 8192 lanes on random points (64 distinct ones,
@@ -24,12 +27,13 @@ chip_smoke.py hold against the plain versions). Times are device ms a
 launch: the stream sleeps while the host queues the launches, and CUDA
 events around them time the card alone. They are measured in turns (the
 builds in order, then in reverse). ptxas's registers, spills and stack of
-each build's kernels are printed, each kernel keyed by its base name, K,
-a_kind, pairs and shape (t1: one thread a lane). The builds go under
+each build's kernels are printed, each kernel keyed by its base name (a
+formula kernel's by its formula: point_add for PointAdd), K, a_kind,
+pairs and shape (t1: one thread a lane). The builds go under
 libecc_tpu_torch/_build/group_loop/.
 
     python3 scripts/time_group_loop.py [--out FILE] [--shapes 2x64,4x128i]
-        [--curves NAME,...] [--kernels add,mul]
+        [--curves NAME,...] [--kernels add,dbl,mul]
 """
 
 import argparse
@@ -52,25 +56,29 @@ from libecc_tpu_torch.ops.cuda.build import (SHAPE_RE,  # noqa: E402
                                              shapes_of)
 
 N = 8192
-# launches a turn: the window loops take milliseconds, an add tens of us
-REPS = {"mul": 3, "add": 200}
+# launches a turn: the window loops take milliseconds, an add or a
+# double tens of us
+REPS = {"mul": 3, "add": 200, "dbl": 200}
 # one curve for each (K, a) of kernels 2, 4 and 6, then Ed25519 and Ed448
 CURVES = ["P-192", "BRAINPOOLP192R1", "SECP192K1", "P-224",
           "BRAINPOOLP224R1", "SECP224K1", "P-256", "SECP256K1",
           "BRAINPOOLP256R1", "BRAINPOOLP320T1", "BRAINPOOLP320R1", "P-384",
           "BRAINPOOLP384R1", "WEI448", "BRAINPOOLP512T1", "BRAINPOOLP512R1",
           "P-521", "ED25519", "ED448"]
-KERNELS = ("add", "mul")
+KERNELS = ("add", "dbl", "mul")
 # group entry point or launcher -> its one-thread form; "#define" lines
 # keep their names
 ONE_THREAD = ((r"(?<!#define )\bECC_WG_ENTRY_POINT\(", "ECC_W_ENTRY_POINT("),
               (r"(?<!#define )\bECC_EDG_ENTRY_POINT\(", "ECC_ED_ENTRY_POINT("),
-              (r"\blaunch_add_g<", "launch_add<"),
-              (r"\blaunch_ed_add_g<", "launch_add<"))
-# the kernel families' shape tables, by base name (see ptxas_summary)
-TABLE_OF = {"point_add": "AddShape", "ed_add": "AddShape",
+              (r"\blaunch_group<(?:ecc::)?PointAdd, ", "launch_add<"),
+              (r"\blaunch_group<(?:ecc::)?EdAdd, ", "launch_add<"),
+              (r"\blaunch_group<(?:ecc::)?PointDbl, ", "launch_dbl<"),
+              (r"\blaunch_group<(?:ecc::)?EdDbl, ", "launch_dbl<"))
+# the kernel families' shape tables, by base name (see kernel_base)
+TABLE_OF = {"point_add": "AddShape", "point_dbl": "AddShape",
+            "ed_add": "AddShape", "ed_dbl": "AddShape",
             "windowed_mul": "GroupShape", "windowed_mul_ed": "GroupShape"}
-ED_ADD_STEM = "edpoint"      # kernel 8a's source, csrc/edpoint.cu
+ED_ADD_STEM = "edpoint"      # kernels 8a and 8b's source, csrc/edpoint.cu
 
 
 def one_thread(name, text):
@@ -117,9 +125,10 @@ def stems_for(curves, kernels):
         ed = name.startswith("ED")
         c = edwards.get_edwards_curve(name) if ed else params.get_curve(name)
         rows = []
-        if "add" in kernels:
-            rows.append(("add", 0, ED_ADD_STEM if ed else point.BUILT[
-                (c.fp_ctx.k, point.a_kind(c))][0]))
+        for kind in ("add", "dbl"):
+            if kind in kernels:
+                rows.append((kind, 0, ED_ADD_STEM if ed else point.BUILT[
+                    (c.fp_ctx.k, point.a_kind(c))][0]))
         if "mul" in kernels:
             for npairs in (1, 2):
                 rows.append(("mul", npairs,
@@ -153,7 +162,19 @@ def build_variant(label, edit, workdir, stems):
         return dict(ex.map(one, stems))
 
 
-KERNEL_RE = re.compile(r"_ZN3ecc\d+(\w+?_kernel)I((?:Li\d+E)+)E")
+# a kernel's mangled name: its name, then its formula type where it takes
+# one, then its integer template arguments (K, a_kind[, pairs])
+KERNEL_RE = re.compile(r"_ZN3ecc\d+(\w+?_kernel)I(?:NS_\d+([A-Za-z]+)E)?"
+                       r"((?:Li\d+E)+)")
+
+
+def kernel_base(name, op=None):
+    """The base name that keys a kernel in TABLE_OF and ptxas_summary:
+    its formula's name in snake case where it takes one (PointAdd ->
+    point_add), else its name without _group_kernel or _kernel."""
+    if op:
+        return re.sub(r"(?<!^)(?=[A-Z])", "_", op).lower()
+    return name.replace("_group_kernel", "").replace("_kernel", "")
 
 
 def ptxas_summary(log: str, shapes: dict) -> dict:
@@ -168,9 +189,8 @@ def ptxas_summary(log: str, shapes: dict) -> dict:
             key = None
             if km:
                 name = km.group(1)
-                base = name.replace("_group_kernel", "").replace("_kernel",
-                                                                 "")
-                args = [int(v) for v in re.findall(r"Li(\d+)E", km.group(2))]
+                base = kernel_base(name, km.group(2))
+                args = [int(v) for v in re.findall(r"Li(\d+)E", km.group(3))]
                 shape = (shape_at(shapes, TABLE_OF[base], args[0])
                          if "group_kernel" in name else "t1")
                 key = (f"{base}_k{args[0]}_a{args[1]}"
@@ -227,7 +247,7 @@ def main() -> int:
     edits = variants(args.shapes)
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(KERNELS):
-        raise SystemExit(f"--kernels: {args.kernels!r}: add, mul")
+        raise SystemExit(f"--kernels: {args.kernels!r}: add, dbl, mul")
     import ctypes
     import numpy as np
     import torch
@@ -299,18 +319,17 @@ def main() -> int:
             return cls(*[c.fp_ctx.from_ints(col, dev) for col in cols])
 
         for kind, npairs, stem in todo:
-            if kind == "add" and ed:
-                ins = [*points(), *points()]
-                kname = build.kernel_name("ed_add", c.fp_ctx.k)
+            if kind in ("add", "dbl"):
+                fn = ("ed_" if ed else "point_") + kind
+                # the add takes two points, the double X, Y, Z of one
+                ins = ([*points(), *points()] if kind == "add"
+                       else [*points()][:3])
+                kname = (build.kernel_name(fn, c.fp_ctx.k) if ed
+                         else point.instance_name(fn, c))
+                launch = edpoint._launch if ed else point._launch
 
                 def run():
-                    return edpoint._launch("ed_add", c, ins)
-            elif kind == "add":
-                ins = [*points(), *points()]
-                kname = point.instance_name("point_add", c)
-
-                def run():
-                    return point._launch("point_add", c, ins)
+                    return launch(fn, c, ins)
             else:
                 tabs = [scalar_mul._build_mul_table(c, points())
                         for _ in range(npairs)]

@@ -804,3 +804,95 @@ def test_ed_add_kernel_matches_plain_at_ragged_n(dev, name):
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     assert rc == 0
     torch.cuda.synchronize()
+
+
+# -- kernel 3 on a group of threads a lane (every K) ------------------------
+
+@pytest.mark.parametrize("name", ADD_CURVES)
+def test_dbl_kernel_matches_plain_at_ragged_n(dev, name):
+    """Kernel 3 in csrc/groupfield.cuh's AddShape at each (K, a) against
+    its plain version, bitwise, at n = 1 (one group, a partial warp), 33
+    (a partial block at every shape of 32 lanes a block) and 161 (the last
+    block holds one lane); where the group's threads do not divide K
+    (K = 7, 14 and 17 at four threads) its zero limbs are in play. Edge
+    lanes first: O = (0 : Y : 0) on lane 0, P with Z = 1 on lane 1, then
+    random P with random Z; on an h > 1 curve the point T2 of order 2 on
+    lanes 2 and 3, whose double is the identity (0 : Y : 0). One plain
+    run at 161 lanes serves the three, the lanes being independent; each
+    n launches once. With n = 0 the C entry point returns 0 and so
+    launched nothing."""
+    import ctypes
+    c = params.get_curve(name)
+    rng = np.random.RandomState(84)
+    nmax = 161
+    wc = _host(c)
+    base = [H.ec_base_mul(wc, 1 + k % (c.q - 1)) for k in _ints(rng, 16, c.q)]
+    pts = [base[i % 16] for i in range(nmax)]
+    pts[0] = None
+    if c.h > 1:
+        pts[2] = pts[3] = H.ec_order2_point(wc)
+    A = _prj(c, rng, pts, dev)
+    one = PrjPoint(*[c.fp_ctx.from_ints([v], dev)
+                     for v in (*pts[1], 1)])
+    A = PrjPoint(*[torch.cat([a[:, :1], o, a[:, 2:]], 1)
+                   for a, o in zip(A, one)])
+    want = point.point_dbl_plain(c, A)
+    if c.h > 1:
+        assert c.fp_ctx.to_ints(want.z[:, 2:4]) == [0, 0]
+        assert 0 not in c.fp_ctx.to_ints(want.y[:, 2:4])
+    name_k = point.instance_name("point_dbl", c)
+    for n in (1, 33, nmax):
+        ins = [v[:, :n].contiguous() for v in A]
+        before = dict(point.launches)
+        got = point.point_dbl(c, PrjPoint(*ins))
+        assert point.launches[name_k] == before[name_k] + 1
+        assert sum(point.launches.values()) == sum(before.values()) + 1
+        assert all(torch.equal(g, w[:, :n]) for g, w in zip(got, want)), n
+    stem, _, tag = point.BUILT[(c.fp_ctx.k, point.a_kind(c))]
+    empty = torch.zeros((c.fp_ctx.k, 0), dtype=torch.int32, device=dev)
+    rc = getattr(point._lib(stem), point._entry("point_dbl", c.fp_ctx.k,
+                                                 tag))(
+        ctypes.byref(point.curve_struct(c)), point.ptr_array([empty] * 3),
+        point.ptr_array([empty] * 3), 0,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc == 0
+    torch.cuda.synchronize()
+
+
+# -- kernel 8b on a group of threads a lane (K = 8 and 14) ------------------
+
+@pytest.mark.parametrize("name", ["ED25519", "ED448"])
+def test_ed_dbl_kernel_matches_plain_at_ragged_n(dev, name):
+    """Kernel 8b in csrc/groupfield.cuh's AddShape at K = 8 (a = -1) and
+    K = 14 (a = 1) against its plain version, bitwise, at n = 1 (one
+    group, a partial warp), 33 (a partial block at 32 lanes a block) and
+    161 (the last block holds one lane); at K = 14 with four threads a
+    lane the group's zero limbs are in play. Edge lanes first: the
+    identity (0, 1) and the point (0, -1) of order 2, then random ones,
+    random Z on every lane. One plain run at 161 lanes serves the three,
+    the lanes being independent; each n launches once. With n = 0 the C
+    entry point returns 0 and so launched nothing."""
+    import ctypes
+    c = edwards.get_edwards_curve(name)
+    rng = np.random.RandomState(85)
+    nmax = 161
+    pts = _ed_affine(c, rng, nmax)
+    pts[1] = (0, c.fp_ctx.p_int - 1)
+    A = _ed_extended(c, rng, pts, dev)
+    want = edpoint.ed_dbl_plain(c, A)
+    k = c.fp_ctx.k
+    name_k = kernel_name("ed_dbl", k)
+    for n in (1, 33, nmax):
+        ins = [v[:, :n].contiguous() for v in A]
+        before = dict(edpoint.launches)
+        got = edpoint.ed_dbl(c, ExtPoint(*ins))
+        assert edpoint.launches[name_k] == before[name_k] + 1
+        assert sum(edpoint.launches.values()) == sum(before.values()) + 1
+        assert all(torch.equal(g, w[:, :n]) for g, w in zip(got, want)), n
+    empty = torch.zeros((k, 0), dtype=torch.int32, device=dev)
+    rc = getattr(edpoint._lib(), f"ed_dbl_k{k}")(
+        ctypes.byref(edpoint.curve_struct(c)), point.ptr_array([empty] * 3),
+        point.ptr_array([empty] * 4), 0,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc == 0
+    torch.cuda.synchronize()

@@ -1,5 +1,6 @@
 """The text edits of scripts/time_group_loop.py, which times the group
-builds of kernels 2, 4, 6, 7, 6-ed and 8a against their one-thread builds: a
+builds of kernels 2, 3, 4, 6, 7, 6-ed, 8a and 8b against their one-thread
+builds: a
 swap that matched nothing would time the group build against itself, and
 a shape line the parser missed would time the default shape under another
 name. No CUDA needed: the edits are plain text."""
@@ -20,7 +21,7 @@ _spec.loader.exec_module(tgl)
 
 _, STEMS = tgl.stems_for(tgl.CURVES, tgl.KERNELS)
 GROUP_FORMS = (r"^ECC_WG_ENTRY_POINT\(", r"^ECC_EDG_ENTRY_POINT\(",
-               r"\blaunch_add_g<", r"\blaunch_ed_add_g<")
+               r"\blaunch_group<")
 
 
 def _text(name):
@@ -33,13 +34,14 @@ def _uses(text, pats):
 
 
 def _entry_points():
-    """Every C entry point of kernels 2 (point.BUILT), 8a (edpoint.BUILT)
-    and 4, 6, 7 and 6-ed (megamul's table) -> its source stem."""
-    out = {f"point_add_k{k}_{tag}" if tag else f"point_add_k{k}": stem
+    """Every C entry point of kernels 2 and 3 (point.BUILT), 8a and 8b
+    (edpoint.BUILT) and 4, 6, 7 and 6-ed (megamul's table) -> its source
+    stem."""
+    out = {point._entry(base, k, tag): stem
            for (k, _), (stem, bases, tag) in point.BUILT.items()
-           if "point_add" in bases}
-    out.update({f"ed_add_k{k}": tgl.ED_ADD_STEM
-                for k in edpoint.BUILT["ed_add"]})
+           for base in ("point_add", "point_dbl") if base in bases}
+    out.update({f"{base}_k{k}": tgl.ED_ADD_STEM
+                for base in ("ed_add", "ed_dbl") for k in edpoint.BUILT[base]})
     out.update({cname: stem for _, cname, stem in megamul._KERNELS.values()})
     return out
 
@@ -51,9 +53,9 @@ def test_the_script_builds_every_source_of_kernels_2_4_6_7_and_6ed():
 @pytest.mark.parametrize("stem", STEMS)
 def test_one_thread_edit_rewrites_every_group_entry_point(stem):
     """Each source's group entry points and launcher calls are all
-    rewritten and none is left. A source's kernel-2 entry points made by
-    point.cuh's ECC_POINT_ENTRY_POINTS call the launcher in the macro,
-    which the header's edit rewrites (test below)."""
+    rewritten and none is left. A source's kernel-2 and kernel-3 entry
+    points made by point.cuh's ECC_POINT_ENTRY_POINTS call the launchers
+    in the macro, which the header's edit rewrites (test below)."""
     text = _text(f"{stem}.cu")
     edited = tgl.one_thread(f"{stem}.cu", text)
     n_group = _uses(text, GROUP_FORMS)
@@ -61,7 +63,7 @@ def test_one_thread_edit_rewrites_every_group_entry_point(stem):
     assert n_group + n_macro >= 1, f"{stem}.cu has no group entry point"
     assert _uses(edited, GROUP_FORMS) == 0
     one = (r"^ECC_W_ENTRY_POINT\(", r"^ECC_ED_ENTRY_POINT\(",
-           r"\blaunch_add<")
+           r"\blaunch_add<", r"\blaunch_dbl<")
     assert _uses(edited, one) == _uses(text, one) + n_group
     changed = sum(a != b for a, b in zip(text.splitlines(),
                                          edited.splitlines()))
@@ -80,9 +82,9 @@ def test_one_thread_edit_rewrites_every_group_entry_point(stem):
         ends = [i for i in (edited.find("\n\n", start),
                             edited.find("\n//", start)) if i >= 0]
         stmt = edited[start:min(ends, default=len(edited))]
-        assert not re.search(r"ECC_WG_|ECC_EDG_|launch_add_g<", stmt), cname
+        assert not re.search(r"ECC_WG_|ECC_EDG_|launch_group<", stmt), cname
         assert re.search(r"ECC_W_ENTRY_POINT\(|ECC_ED_ENTRY_POINT\(|"
-                         r"launch_add<", stmt), cname
+                         r"launch_(add|dbl)<", stmt), cname
 
 
 @pytest.mark.parametrize("rule", range(len(tgl.ONE_THREAD)))
@@ -102,14 +104,18 @@ def test_each_one_thread_swap_changes_lines(rule):
 
 
 def test_one_thread_edit_of_the_headers():
-    """point.cuh's entry-point macro calls the one-thread launcher after
-    the edit; the macros' definitions in windowed.cuh keep their names."""
+    """point.cuh's entry-point macro calls the one-thread launchers after
+    the edit; the group launcher's definition in groupfield.cuh and the
+    macros' definitions in windowed.cuh keep their names."""
     pt = tgl.one_thread("point.cuh", _text("point.cuh"))
     macro = pt[pt.index("#define ECC_POINT_ENTRY_POINTS"):]
     macro = macro[:macro.index("\n\n")]
-    assert "ecc::launch_add<K, AK>" in macro
-    assert "launch_add_g<" not in pt
-    assert "int launch_add_g(" in pt            # the definition stays
+    for fn in ("add", "dbl"):
+        assert f"ecc::launch_{fn}<K, AK>" in macro
+    assert "launch_group<" not in pt
+    gf = _text("groupfield.cuh")
+    assert tgl.one_thread("groupfield.cuh", gf) == gf
+    assert "int launch_group(" in gf        # the definition stays
     w = _text("windowed.cuh")
     assert tgl.one_thread("windowed.cuh", w) == w
     for h in build.CSRC.glob("*.cuh"):
@@ -149,8 +155,9 @@ def test_shape_edit_sets_every_table(spec):
 def test_ptxas_summary_keys_each_kernel_by_its_shape():
     shapes = tgl.shapes_of(_text(tgl.SHAPES_HEADER))
     log = "\n".join([
-        "ptxas info    : Compiling entry function "
-        "'_ZN3ecc22point_add_group_kernelILi17ELi1EEEvNS_8CurveCtxIXT_EEE'",
+        "ptxas info    : Compiling entry function '_ZN3ecc20formula_group_"
+        "kernelINS_8PointAddELi17ELi1EEEvNT_3CtxIXT0_EEENS_6InRowsIXsrS2_3kIn"
+        "EEENS_7OutRowsIXsrS2_4kOutEEEx'",
         "ptxas info    : Used 96 registers",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Compiling entry function "
@@ -160,8 +167,9 @@ def test_ptxas_summary_keys_each_kernel_by_its_shape():
         "ptxas info    : Compiling entry function '_ZN3ecc28windowed_mul_"
         "ed_group_kernelILi8ELi0ELi2EEEvNS_10EdCurveCtxIXT_EEE'",
         "ptxas info    : Used 80 registers",
-        "ptxas info    : Compiling entry function "
-        "'_ZN3ecc19ed_add_group_kernelILi14ELi2EEEvNS_10EdCurveCtxIXT_EEE'",
+        "ptxas info    : Compiling entry function '_ZN3ecc20formula_group_"
+        "kernelINS_5EdAddELi14ELi2EEEvNT_3CtxIXT0_EEENS_6InRowsIXsrS2_3kInEEE"
+        "NS_7OutRowsIXsrS2_4kOutEEEx'",
         "ptxas info    : Used 72 registers",
         "ptxas info    : Compiling entry function "
         "'_ZN3ecc13ed_add_kernelILi14ELi2EEEvNS_10EdCurveCtxIXT_EEE'",
@@ -177,25 +185,29 @@ def test_ptxas_summary_keys_each_kernel_by_its_shape():
                    "ed_add_k14_a2_t1": [168, 0, 0]}
 
 
+@pytest.mark.parametrize("kind", ["add", "dbl"])
 @pytest.mark.parametrize("name,k", [("ED25519", 8), ("ED448", 14)])
-def test_add_kernels_plan_the_edwards_add(name, k):
-    """--kernels add on an Edwards curve times kernel 8a, built from its
-    own source alone."""
-    plan, stems = tgl.stems_for([name], ("add",))
+def test_add_kernels_plan_the_edwards_add(name, k, kind):
+    """--kernels add (dbl) on an Edwards curve times kernel 8a (8b), built
+    from its own source alone."""
+    plan, stems = tgl.stems_for([name], (kind,))
     c, ed, rows = plan[name]
     assert ed and c.fp_ctx.k == k
-    assert rows == [("add", 0, tgl.ED_ADD_STEM)]
+    assert rows == [(kind, 0, tgl.ED_ADD_STEM)]
     assert stems == [tgl.ED_ADD_STEM]
 
 
 def test_every_group_kernel_has_a_shape_table():
     """ptxas_summary keys each group kernel by the shape of its family's
-    table: every *_group_kernel of the sources has one, and it is a table
-    of groupfield.cuh."""
+    table: every *_group_kernel of the sources, and every formula that
+    launch_group runs, has one, and it is a table of groupfield.cuh."""
     tables = tgl.shapes_of(_text(tgl.SHAPES_HEADER))
     text = "\n".join(p.read_text() for p in build.CSRC.glob("*.cu*"))
-    bases = set(re.findall(r"\b(\w+)_group_kernel\b", text))
-    assert {"point_add", "ed_add", "windowed_mul",
+    ops = set(re.findall(r"\blaunch_group<(?:ecc::)?(\w+),", text))
+    bases = ({tgl.kernel_base(k) for k in
+              re.findall(r"\b(\w+_group_kernel)\b", text)}
+             - {"formula"}) | {tgl.kernel_base("", op) for op in ops}
+    assert {"point_add", "point_dbl", "ed_add", "ed_dbl", "windowed_mul",
             "windowed_mul_ed"} <= bases
     for base in bases:
         assert tgl.TABLE_OF[base] in tables, base
